@@ -1,5 +1,5 @@
-"""Rollout and evaluation runner (port of ``learner/runner.py``: collect and
-eval; the training episode comes with the PPO update).
+"""Rollout, training and evaluation runner (port of ``learner/runner.py``:
+collect, train_episode, eval).
 
 Counterpart of the reference's ``GMPERunner`` collect / insert / compute
 pipeline (onpolicy/runner/shared/graph_mpe_runner.py:40-516).  All envs and
@@ -29,7 +29,7 @@ from ..envs.actions import stop_action_index
 from ..envs.types import EnvParams, EnvState
 from ..models.policy import GRMAPPOPolicy
 from .buffer import RolloutBuffer, compute_returns
-from .mappo import TrainState
+from .mappo import GRMAPPOTrainer, TrainState
 
 Tensor = torch.Tensor
 
@@ -54,14 +54,12 @@ class RolloutCarry:
 class Runner:
     env_params: EnvParams
     policy: GRMAPPOPolicy
+    # the PPO update; the returns' gamma, lambda, use_gae and
+    # use_proper_time_limits are read from it, as in the JAX package
+    trainer: GRMAPPOTrainer
     n_rollout_threads: int
     episode_length: int
     dtype: torch.dtype = torch.float32
-    # return computation (the JAX package reads these from its trainer)
-    gamma: float = 0.99
-    gae_lambda: float = 0.95
-    use_gae: bool = True
-    use_proper_time_limits: bool = False
     device: Optional[torch.device] = None
 
     def __post_init__(self):
@@ -223,12 +221,29 @@ class Runner:
             ts.params, flat(share_last), flat(carry.node_obs), flat(self._adj_rep(carry.adj)),
             flat(carry.rnn_critic), flat(carry.masks),
         ).reshape(B, N, 1).to(self.dtype)
+        tr = self.trainer
         buffer = compute_returns(
-            buffer, next_values, ts.vn, self.gamma, self.gae_lambda,
-            use_gae=self.use_gae, use_proper_time_limits=self.use_proper_time_limits,
+            buffer, next_values, ts.vn, tr.gamma, tr.gae_lambda,
+            use_gae=tr.use_gae, use_proper_time_limits=tr.use_proper_time_limits,
         )
         infos = {k: torch.stack([o["info"][k] for o in outs]) for k in outs[0]["info"]}
         return carry, buffer, infos
+
+    # ------------------------------------------------------------- episode
+    def train_episode(self, ts: TrainState, carry: RolloutCarry,
+                      gen: torch.Generator | None = None):
+        """collect + train (JAX ``Runner.train_episode``, runner.py:246):
+        returns ``(ts, carry, train_info, env_info)`` with ``ts`` updated in
+        place, the trainer's losses and norms plus
+        ``average_episode_rewards``, and each env info's mean over the
+        window's last step (0-d tensors).  ``gen`` draws the minibatch
+        permutations when the trainer has more than one minibatch."""
+        carry, buffer, infos = self.collect(ts, carry)
+        ts, train_info = self.trainer.train(ts, buffer, gen)
+        train_info = dict(train_info)
+        train_info["average_episode_rewards"] = buffer.rewards.mean() * self.episode_length
+        env_info = {k: v[-1].mean() for k, v in infos.items()}
+        return ts, carry, train_info, env_info
 
     # ------------------------------------------------------------- eval
     def eval_episode(self, ts: TrainState, seed: int, n_eval: int) -> dict:

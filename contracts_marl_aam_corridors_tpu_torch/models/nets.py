@@ -11,7 +11,9 @@ The GNN has one formulation here, the transposed trunk of
 ``gnn_transposed_apply`` (nets.py:527): rows are entity x feature, the batch
 is the minor axis, and the whole trunk is one call of
 ``ops.gnn_trunk.gnn_trunk_forward`` (the CUDA kernel on the card, the plain
-version on the CPU).  The JAX package's dense per-graph ``EmbedConv`` /
+version on the CPU); under grad it goes through ``GNNTrunk``, whose
+backward is the ``gnn_trunk_bwd`` kernel on the card.  The JAX package's
+dense per-graph ``EmbedConv`` /
 ``TransformerConv`` modules compute the same function and are not ported.
 
 All LayerNorms use eps=1e-5 (torch's default, as in the JAX package).
@@ -257,27 +259,33 @@ class GNNBase(nn.Module):
             tree[name]["lin_edge"] = tc.lin_edge
         return tree
 
+    def grad_params(self) -> gnn_trunk.KernelParams:
+        """The trunk kernels' parameter buffer, built straight from these
+        weights (stored (out, in), so one transpose each).  Built per call
+        and differentiable where grad is enabled, so the buffer's gradient
+        reaches every weight."""
+        ec = self.embed_layer
+        parts = [ec.lin1.weight.T, ec.lin1.bias, ec.lin1_edge, ec.ln1.weight, ec.ln1.bias]
+        for i in range(self.cfg.embed_layer_n):
+            lin, ln = getattr(ec, f"lin{i + 2}"), getattr(ec, f"ln{i + 2}")
+            parts += [lin.weight.T, lin.bias, ln.weight, ln.bias]
+        for name in ["gnn1"] + [f"gnn2_{i}" for i in range(self.cfg.gnn_layer_n)]:
+            tc = getattr(self, name)
+            qkv = (tc.lin_query, tc.lin_key, tc.lin_value)
+            parts += [torch.cat([l.weight for l in qkv]).T,
+                      torch.cat([l.bias for l in qkv]), tc.lin_edge,
+                      tc.lin_skip.weight.T, tc.lin_skip.bias]
+        blob = torch.cat([p.reshape(-1) for p in parts]).to(torch.float32)
+        return gnn_trunk.KernelParams(blob, ec.lin1.weight.shape[0])
+
     def kernel_params(self) -> gnn_trunk.KernelParams:
-        """The trunk kernel's parameter buffer, built straight from these
-        weights (stored (out, in), so one transpose each) and kept until one
-        of them changes: an in-place update or a load bumps a tensor's
-        version, and a move gives it new storage."""
+        """The buffer for calls without a gradient, built under no_grad and
+        kept until a weight changes: an in-place update or a load bumps a
+        tensor's version, and a move gives it new storage."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if key != self._kernel_key:
-            ec = self.embed_layer
-            parts = [ec.lin1.weight.T, ec.lin1.bias, ec.lin1_edge, ec.ln1.weight, ec.ln1.bias]
-            for i in range(self.cfg.embed_layer_n):
-                lin, ln = getattr(ec, f"lin{i + 2}"), getattr(ec, f"ln{i + 2}")
-                parts += [lin.weight.T, lin.bias, ln.weight, ln.bias]
-            for name in ["gnn1"] + [f"gnn2_{i}" for i in range(self.cfg.gnn_layer_n)]:
-                tc = getattr(self, name)
-                qkv = (tc.lin_query, tc.lin_key, tc.lin_value)
-                parts += [torch.cat([l.weight for l in qkv]).T,
-                          torch.cat([l.bias for l in qkv]), tc.lin_edge,
-                          tc.lin_skip.weight.T, tc.lin_skip.bias]
             with torch.no_grad():
-                blob = torch.cat([p.reshape(-1) for p in parts]).to(torch.float32)
-            self._kernel_params = gnn_trunk.KernelParams(blob, ec.lin1.weight.shape[0])
+                self._kernel_params = self.grad_params()
             self._kernel_key = key
         return self._kernel_params
 
@@ -291,7 +299,12 @@ def _gnn_src_T(gnn: GNNBase, node_obs: Tensor) -> Tensor:
     B, E, _ = node_obs.shape
     feat = node_obs[..., :-1].to(torch.float32)
     etype = node_obs[..., -1].to(torch.long)
-    emb = gnn.embed_layer.entity_embed.weight[etype]
+    # the embedding lookup as an exact one-hot product: its backward is a
+    # reduction, where the gather's backward scatters B*E rows into the
+    # table's few rows (on the card that scatter took most of a PPO epoch)
+    table = gnn.embed_layer.entity_embed.weight
+    onehot = (etype[..., None] == torch.arange(table.shape[0], device=etype.device))
+    emb = (onehot[..., None].to(table.dtype) * table).sum(dim=-2)
     src = torch.cat([feat, emb], dim=-1)
     return src.permute(1, 2, 0).reshape(E * src.shape[-1], B).contiguous()
 
@@ -328,10 +341,16 @@ def gnn_transposed_apply(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: 
     src_T = _gnn_src_T(gnn, node_obs)
     Ds = src_T.shape[0] // E
     adj_T = adj.to(torch.float32).permute(1, 2, 0).reshape(E * E, B).contiguous()
-    # on the card the kernel takes its buffer, kept across calls; the plain
-    # version takes the flat tuple, rebuilt so gradients reach the weights
-    params = (gnn.kernel_params() if src_T.is_cuda
-              else _flatten_gnn_params(gnn, cfg.embed_layer_n, cfg.gnn_layer_n))
+    # with grad: the differentiable buffer, whose gradient (the backward
+    # kernel's on the card) reaches the weights, and the entity embedding's
+    # through dsrc.  Without: the card's kernel takes the buffer kept across
+    # calls, the CPU's plain version the flat tuple.
+    if torch.is_grad_enabled() and gnn.embed_layer.lin1.weight.requires_grad:
+        params = gnn.grad_params()
+    elif src_T.is_cuda:
+        params = gnn.kernel_params()
+    else:
+        params = _flatten_gnn_params(gnn, cfg.embed_layer_n, cfg.gnn_layer_n)
     out = gnn_trunk.gnn_trunk_forward(
         E, Ds, cfg.gnn_num_heads, C, cfg.embed_layer_n, cfg.gnn_layer_n,
         cfg.max_edge_dist, (cfg.embed_use_relu, cfg.gnn_use_relu), params, src_T, adj_T,

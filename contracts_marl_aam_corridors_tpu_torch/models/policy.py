@@ -1,18 +1,21 @@
-"""Policy wrapper: actor and critic parameters and the action API (port of
-``models/policy.py``, inference half).
+"""Policy wrapper: actor and critic parameters, optimizers and the action
+API (port of ``models/policy.py``).
 
 Counterpart of ``GR_MAPPOPolicy`` (onpolicy/algorithms/graph_MAPPOPolicy.py:
-11-307): ``get_actions``, ``get_values`` and ``act``.  As in the JAX package
-the policy object holds the configuration and the parameters travel beside
-it: ``PolicyParams`` holds the actor and critic modules.
+11-307): ``get_actions``, ``get_values``, ``act``, ``evaluate_actions``, two
+Adam optimizers with eps 1e-5 and global-norm clipping (:71-77), and the
+linear learning-rate decay (``lr_decay``:79).  As in the JAX package the
+policy object holds the configuration and the parameters travel beside it:
+``PolicyParams`` holds the actor and critic modules, ``TrainState`` their
+optimizers.
 
-Routing: all three calls run both GNN trunks through the transposed
-formulation, so on the card every trunk call is the ``gnn_trunk_fwd``
-kernel.  (The JAX package runs ``act`` and ``get_values`` through its dense
-per-graph GNN; the two formulations compute the same function, held by the
-JAX package's own tests at rtol 2e-4 / atol 2e-5.)  Inputs of any floating
-type are cast to the parameters' float32.  The optimizers, ``evaluate_actions``
-and the learning-rate schedule come with training.
+Routing: every call runs both GNN trunks through the transposed
+formulation, so on the card every trunk forward is the ``gnn_trunk_fwd``
+kernel and every trunk backward the ``gnn_trunk_bwd`` kernel.  (The JAX
+package runs ``act`` and ``get_values`` through its dense per-graph GNN; the
+two formulations compute the same function, held by the JAX package's own
+tests at rtol 2e-4 / atol 2e-5.)  Inputs of any floating type are cast to
+the parameters' float32.
 """
 from __future__ import annotations
 
@@ -50,10 +53,25 @@ def _f32(x: Tensor | None) -> Tensor | None:
 
 
 class GRMAPPOPolicy:
-    def __init__(self, cfg: ModelConfig, dims: PolicyDims, device=None):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        dims: PolicyDims,
+        device=None,
+        lr: float = 7e-4,
+        critic_lr: float = 7e-4,
+        opti_eps: float = 1e-5,
+        max_grad_norm: float = 10.0,
+        use_max_grad_norm: bool = True,
+    ):
         self.cfg = cfg
         self.dims = dims
         self.device = resolve_device(device)
+        self.lr = lr
+        self.critic_lr = critic_lr
+        self.opti_eps = opti_eps
+        self.max_grad_norm = max_grad_norm
+        self.use_max_grad_norm = use_max_grad_norm
 
     def init_params(self, seed: int) -> PolicyParams:
         """Fresh actor and critic, drawn on the CPU from ``seed`` (the same
@@ -68,6 +86,27 @@ class GRMAPPOPolicy:
         actor.init_(gen)
         critic.init_(gen)
         return PolicyParams(actor=actor.to(self.device), critic=critic.to(self.device))
+
+    def init_opt_states(self, params: PolicyParams):
+        """(actor, critic) Adam optimizers (graph_MAPPOPolicy.py:71-77), the
+        counterpart of optax's ``inject_hyperparams(adam)``; the clipping
+        that optax chains in front is ``learner.mappo.clip_by_global_norm``.
+        No weight decay: the JAX package's optax Adam takes none."""
+        adam = lambda m, lr: torch.optim.Adam(m.parameters(), lr=lr, eps=self.opti_eps)
+        return adam(params.actor, self.lr), adam(params.critic, self.critic_lr)
+
+    @staticmethod
+    def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+        """Set an optimizer's learning rate (reference
+        ``update_linear_schedule``: lr * (1 - episode/episodes))."""
+        for group in opt.param_groups:
+            group["lr"] = lr
+
+    def lr_decay(self, ts, episode: int, episodes: int) -> None:
+        """Per-episode linear decay of both optimizers (lr_decay:79)."""
+        frac = episode / float(episodes)
+        self.set_lr(ts.actor_opt, self.lr - self.lr * frac)
+        self.set_lr(ts.critic_opt, self.critic_lr - self.critic_lr * frac)
 
     @torch.no_grad()
     def get_actions(
@@ -120,3 +159,57 @@ class GRMAPPOPolicy:
         )
         actions = dist.mode(logits) if deterministic else dist.sample(gen, logits)
         return actions, rnn_states_actor
+
+    def evaluate_actions(
+        self,
+        params: PolicyParams,
+        cent_obs: Tensor,
+        obs: Tensor,
+        node_obs: Tensor,
+        adj: Tensor,
+        agent_id: Tensor,
+        rnn_states_actor: Tensor,
+        rnn_states_critic: Tensor,
+        action: Tensor,
+        masks: Tensor,
+        available_actions: Tensor | None = None,
+        active_masks: Tensor | None = None,
+    ):
+        """Training-time values, log-probs and entropy
+        (graph_MAPPOPolicy.py:199-264), time-major as the JAX package's
+        ``evaluate_actions(time_major=True)`` (policy.py:382-450).
+
+        The leading axes are (L, B, ...); the RNN states are the (B, rN, H)
+        states at each chunk's head.  Both GNN+MLP trunks run once over all
+        L*B rows, then a loop over the L steps advances both GRU heads with
+        their masks.  The entropy is averaged over ``active_masks``.
+        Differentiable: on the card each trunk's backward is the
+        ``gnn_trunk_bwd`` kernel.
+        """
+        L = obs.shape[0]
+        flat = lambda x: x.reshape((L * x.shape[1],) + x.shape[2:])
+        unflat = lambda x: x.reshape((L, -1) + x.shape[1:])
+        node_obs, adj, masks = _f32(node_obs), _f32(adj), _f32(masks)
+        available_actions = _f32(available_actions)
+        feats_a = unflat(params.actor.trunk(_f32(flat(obs)), flat(node_obs), flat(adj),
+                                            flat(agent_id)))
+        feats_c = unflat(params.critic.trunk(_f32(flat(cent_obs)), flat(node_obs), flat(adj),
+                                             None))
+        h_a, h_c = _f32(rnn_states_actor), _f32(rnn_states_critic)
+        logits, values = [], []
+        for t in range(L):
+            avail = None if available_actions is None else available_actions[t]
+            lg, h_a = params.actor.head(feats_a[t], h_a, masks[t], avail)
+            v, h_c = params.critic.head(feats_c[t], h_c, masks[t])
+            logits.append(lg)
+            values.append(v)
+        logits, values = torch.stack(logits), torch.stack(values)
+        action_log_probs = dist.log_probs(logits, action)
+        ent = dist.entropy(logits)
+        if active_masks is not None:
+            am = _f32(active_masks).squeeze(-1)
+            dist_entropy = (ent * am).sum() / am.sum()
+        else:
+            dist_entropy = ent.mean()
+        return values, action_log_probs, dist_entropy
+

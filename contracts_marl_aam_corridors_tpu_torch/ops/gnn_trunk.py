@@ -1,11 +1,15 @@
-"""The GNN trunk forward (EmbedConv + TransformerConv stack) in the
-transposed layout: a plain torch version and a hand-written Hopper kernel.
+"""The GNN trunk (EmbedConv + TransformerConv stack) in the transposed
+layout, forward and backward: plain torch versions and hand-written Hopper
+kernels.
 
 Counterpart of ``contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py``:
 ``flatten_gnn_params`` (:450), ``xla_transposed_forward`` (:487-591, ported
-as :func:`gnn_trunk_forward_plain`) and the Pallas TPU kernel
-``make_gnn_forward`` (:299-447, replaced by the CUDA kernel in
-``csrc/gnn_trunk_fwd.cu`` behind :func:`gnn_trunk_forward`).
+as :func:`gnn_trunk_forward_plain`), the Pallas TPU kernels
+``make_gnn_forward`` (:299-447, replaced by ``csrc/gnn_trunk_fwd.cu`` behind
+:func:`gnn_trunk_forward`) and ``make_gnn_bwd`` (:594-667, replaced by
+``csrc/gnn_trunk_bwd.cu`` behind :func:`gnn_trunk_backward`), and the
+``custom_vjp`` ``make_gnn_fused`` (:811) that joins them, here the
+``torch.autograd.Function`` :class:`GNNTrunk`.
 
 Layout contract (float32), as in the JAX package:
   src_aug_T:  (E*Ds, B)  per-entity EmbedConv input [feat, Embed(etype)],
@@ -13,13 +17,14 @@ Layout contract (float32), as in the JAX package:
   adj_T:      (E*E, B)   distance adjacency, row s*E+t = d(s -> t)
   output:     (E*C, B)   per-node embeddings, entity-major rows
 
-``gnn_trunk_forward`` runs the plain version for tensors on the CPU and the
-kernel for tensors on the card; on the card it launches the kernel or
-raises.  The kernel is compiled with ``nvcc`` at first use, from the source
-in the package, into ``build/kernels/`` at the repository root.
+Both wrappers run the plain version for tensors on the CPU and the kernel
+for tensors on the card; on the card they launch the kernel or raise.  The
+kernels are compiled with ``nvcc`` at first use, each from its source in the
+package, into ``build/kernels/`` at the repository root.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -38,7 +43,8 @@ Tensor = torch.Tensor
 NEG_F32 = float(torch.finfo(torch.float32).min)
 LN_EPS = 1e-5
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gnn_trunk_fwd.cu"
+KERNELS = ("gnn_trunk_fwd", "gnn_trunk_bwd")
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 
@@ -167,8 +173,33 @@ def gnn_trunk_forward_plain(
     return x.reshape(E * C, B).to(torch.float32)
 
 
+
+def gnn_trunk_backward_plain(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    params_flat, src_aug_T, adj_T, g, compute_dtype=torch.float32,
+) -> tuple[tuple, Tensor, Tensor]:
+    """The vjp of :func:`gnn_trunk_forward_plain` for the output cotangent
+    ``g`` (E*C, B): ``(dparams_flat, dsrc_aug_T, dadj_T)``, taken with
+    ``torch.autograd.grad`` in ``compute_dtype``.
+
+    Counterpart of what ``make_gnn_bwd`` traces inside its body
+    (gnn_pallas.py:618-624): ``jax.vjp`` of ``xla_transposed_forward``.
+    Parameter gradients are summed over the batch and come in the flat
+    layout; the distance gradient is zero where the edge mask is.
+    """
+    cdt = compute_dtype
+    with torch.enable_grad():
+        ps = [p.detach().to(cdt).requires_grad_(True) for p in params_flat]
+        src = src_aug_T.detach().to(cdt).requires_grad_(True)
+        adj = adj_T.detach().to(cdt).requires_grad_(True)
+        out = gnn_trunk_forward_plain(E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist,
+                                      use_relu, ps, src, adj, compute_dtype=cdt)
+        grads = torch.autograd.grad(out, ps + [src, adj], grad_outputs=g.to(out.dtype))
+    return tuple(grads[:-2]), grads[-2], grads[-1]
+
+
 # --------------------------------------------------------------------------
-# The CUDA kernel: build, load, launch.
+# The CUDA kernels: build, load, launch.
 # --------------------------------------------------------------------------
 
 
@@ -176,47 +207,60 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the gnn_trunk_fwd kernel cannot be built")
+    raise RuntimeError("nvcc not found: the trunk kernels cannot be built")
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> dict:
-    """Compile ``csrc/gnn_trunk_fwd.cu`` for sm_90a into a shared library
-    with a plain C interface (once per process; the file name carries the
-    source's hash).  Returns the library path, the compile seconds and the
-    ptxas register/spill lines."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` for sm_90a into a shared library with a
+    plain C interface (once per process; the file name carries the source's
+    hash).  Returns the library path, the compile seconds and the ptxas
+    register/spill/shared-memory lines."""
+    if name not in KERNELS:
+        raise ValueError(f"no kernel {name!r}; the kernels are {KERNELS}")
+    source = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libgnn_trunk_fwd_{tag}.so"
+    lib = BUILD_DIR / f"lib{name}_{tag}.so"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(lib) + ".tmp", str(SOURCE),
+        "-o", str(lib) + ".tmp", str(source),
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{proc.stderr}")
     os.replace(str(lib) + ".tmp", lib)
     ptxas = [ln.strip() for ln in proc.stderr.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "smem" in ln]
     return {"library": str(lib), "seconds": seconds, "ptxas": ptxas}
 
 
+def build_all() -> dict:
+    """Build every kernel, one ``nvcc`` per source, all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["library"])
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gnn_trunk_fwd.argtypes = [
-        p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p,
-    ]
-    lib.gnn_trunk_fwd.restype = i
-    lib.gnn_trunk_fwd_config.argtypes = [
-        i, i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(i),
-    ]
-    lib.gnn_trunk_fwd_config.restype = i
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(build(name)["library"])
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    ip = ctypes.POINTER(i)
+    if name == "gnn_trunk_fwd":
+        lib.gnn_trunk_fwd.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, p]
+        lib.gnn_trunk_fwd.restype = i
+        lib.gnn_trunk_fwd_config.argtypes = [i, i, i, i, i, i, i, ip, ip, ip]
+        lib.gnn_trunk_fwd_config.restype = i
+    else:
+        lib.gnn_trunk_bwd.argtypes = [
+            p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, i, p,
+        ]
+        lib.gnn_trunk_bwd.restype = i
+        lib.gnn_trunk_bwd_config.argtypes = [i, i, i, i, i, i, i, ll, ip, ip, ip, ip]
+        lib.gnn_trunk_bwd_config.restype = i
     return lib
 
 
@@ -227,37 +271,54 @@ _CONFIG_ERRORS = {
     -4: "layer counts out of the kernel's range",
     -5: "parameter count does not match the dimensions",
     -6: "device ordinal beyond the kernel's launch-plan table",
+    -7: "the scratch buffer has fewer rows than the launch has CTAs",
+    -8: "empty batch",
 }
 
 
-def _check_rc(rc: int) -> None:
+def _check_rc(name: str, rc: int) -> None:
     if rc == 0:
         return
     if rc < 0:
-        raise ValueError(f"gnn_trunk_fwd: {_CONFIG_ERRORS.get(rc, rc)}")
-    raise RuntimeError(f"gnn_trunk_fwd: CUDA error {rc} at launch")
+        raise ValueError(f"{name}: {_CONFIG_ERRORS.get(rc, rc)}")
+    raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
 def kernel_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n) -> dict:
     """Graphs per CTA, dynamic shared memory bytes and parameter floats the
-    kernel uses for these dimensions (raises where it cannot run them)."""
+    forward kernel uses for these dimensions (raises where it cannot run
+    them)."""
     g, smem, npar = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _check_rc(_library().gnn_trunk_fwd_config(
+    _check_rc("gnn_trunk_fwd", _library("gnn_trunk_fwd").gnn_trunk_fwd_config(
         E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n,
         ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar)))
     return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value}
 
 
+def backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
+    """The backward kernel's graphs per CTA, dynamic shared memory bytes,
+    parameter floats and CTAs for a batch of B graphs (the rows of its
+    scratch buffer); raises where it cannot run these dimensions."""
+    g, smem, npar, grid = (ctypes.c_int() for _ in range(4))
+    _check_rc("gnn_trunk_bwd", _library("gnn_trunk_bwd").gnn_trunk_bwd_config(
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B,
+        ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar), ctypes.byref(grid)))
+    return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value,
+            "ctas": grid.value}
+
+
 class KernelParams(NamedTuple):
-    """The kernel's parameters: one contiguous float32 buffer in its order,
-    weights stored (in, out) so a warp's lanes read consecutive words, and
-    the embed width ``F1`` it was laid out for."""
+    """The kernels' parameters: one contiguous float32 buffer in their
+    order, weights stored (in, out) so a warp's lanes read consecutive words,
+    and the embed width ``F1`` it was laid out for."""
     blob: Tensor
     F1: int
 
 
 def param_blob(params_flat, embed_layer_n: int, gnn_layer_n: int) -> KernelParams:
-    """Flat params (:func:`flatten_gnn_params`) -> the kernel's buffer."""
+    """Flat params (:func:`flatten_gnn_params`) -> the kernels' buffer.
+    Differentiable: a gradient in the flat layout maps to one in the
+    buffer's by the same call."""
     head, embed, tcs = _split_flat(params_flat, embed_layer_n, gnn_layer_n)
     parts = [head[0].T] + list(head[1:])
     for W, *vecs in embed:
@@ -268,6 +329,46 @@ def param_blob(params_flat, embed_layer_n: int, gnn_layer_n: int) -> KernelParam
     return KernelParams(blob, head[0].shape[0])
 
 
+def unpack_blob(kp: KernelParams, Ds, H, C, embed_layer_n, gnn_layer_n) -> tuple:
+    """The inverse of :func:`param_blob`: the buffer -> the flat tuple, as
+    views of the buffer."""
+    blob, F1 = kp.blob, kp.F1
+    QKV = 3 * H * C
+    cur = 0
+
+    def take(n):
+        nonlocal cur
+        cur += n
+        return blob[cur - n : cur]
+
+    weight = lambda n_in, n_out: take(n_in * n_out).reshape(n_in, n_out).T
+    col = lambda n: take(n).reshape(n, 1)
+    flat = [weight(Ds, F1), col(F1), col(F1), col(F1), col(F1)]
+    for _ in range(embed_layer_n):
+        flat += [weight(F1, F1), col(F1), col(F1), col(F1)]
+    cin = F1
+    for _ in range(1 + gnn_layer_n):
+        flat += [weight(cin, QKV), col(QKV), col(H * C), weight(cin, C), col(C)]
+        cin = C
+    if cur != blob.numel():
+        raise ValueError(f"a buffer of {blob.numel()} floats for {cur} parameters")
+    return tuple(flat)
+
+
+def _check_inputs(name, E, Ds, C, tensors) -> None:
+    """The kernels' contract on CUDA inputs: contiguous float32 of the
+    transposed shapes, all on one device."""
+    dev = tensors["src_aug_T"].device
+    B = tensors["src_aug_T"].shape[-1]
+    rows = {"src_aug_T": E * Ds, "adj_T": E * E, "g": E * C}
+    for key, t in tensors.items():
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous float32 tensor on {dev}")
+        if tuple(t.shape) != (rows[key], B):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {(rows[key], B)}")
+
+
 def gnn_trunk_forward(
     E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
     params, src_aug_T, adj_T,
@@ -275,67 +376,159 @@ def gnn_trunk_forward(
     """The trunk forward: the plain version for CPU tensors, the
     ``gnn_trunk_fwd`` CUDA kernel for tensors on the card.
 
-    ``params`` is :func:`flatten_gnn_params`'s tuple; for tensors on the card
-    it may also be a :class:`KernelParams` prepared once
-    (``GNNBase.kernel_params``), which spares packing the buffer per call.
-    The kernel has no backward yet, so on the card it refuses inputs that
-    need a gradient.  ``gnn_trunk_forward.launches`` counts kernel launches.
+    ``params`` is :func:`flatten_gnn_params`'s tuple or a
+    :class:`KernelParams` buffer (``GNNBase.kernel_params``, which spares
+    packing the buffer per call).  Where a gradient is needed (grad enabled
+    and an input that requires it) the call goes through :class:`GNNTrunk`,
+    whose backward is the ``gnn_trunk_bwd`` kernel on the card.  Without one
+    the CPU path takes only the flat tuple.  ``gnn_trunk_forward.launches``
+    counts forward kernel launches.
     """
+    dims = (E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu)
     dev = src_aug_T.device
-    if dev.type == "cpu":
-        if isinstance(params, KernelParams):
-            raise ValueError("gnn_trunk_forward: the plain version takes the flat params")
-        return gnn_trunk_forward_plain(
-            E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
-            params, src_aug_T, adj_T,
-        )
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"gnn_trunk_forward: no path for device {dev}")
-    B = src_aug_T.shape[-1]
-    for name, t, rows in (("src_aug_T", src_aug_T, E * Ds), ("adj_T", adj_T, E * E)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-        if tuple(t.shape) != (rows, B):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(rows, B)}")
-    kp = params if isinstance(params, KernelParams) else param_blob(
-        params, embed_layer_n, gnn_layer_n)
-    if kp.blob.device != dev:
-        raise ValueError(f"the trunk's parameters must lie on {dev}")
-    if torch.is_grad_enabled() and (src_aug_T.requires_grad or kp.blob.requires_grad):
-        raise NotImplementedError("gnn_trunk_fwd has no backward kernel yet; "
-                                  "run the trunk on the card under torch.no_grad()")
-    out = torch.empty((E * C, B), dtype=torch.float32, device=dev)
-    if B == 0:
-        return out
-    launch_kernel(E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
-                  kp, src_aug_T, adj_T, out)
-    gnn_trunk_forward.launches += 1
-    return out
+    kp = params if isinstance(params, KernelParams) else None
+    leaves = (kp.blob,) if kp is not None else tuple(params)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves + (src_aug_T, adj_T)):
+        if kp is None:
+            kp = param_blob(params, embed_layer_n, gnn_layer_n)
+        return GNNTrunk.apply(dims, kp.F1, kp.blob, src_aug_T, adj_T)
+    if dev.type == "cpu":
+        if kp is not None:
+            raise ValueError("gnn_trunk_forward: the plain version takes the flat params")
+        return gnn_trunk_forward_plain(*dims, params, src_aug_T, adj_T)
+    if kp is None:
+        kp = param_blob(params, embed_layer_n, gnn_layer_n)
+    return _forward_kernel(dims, kp, src_aug_T, adj_T)
 
 
 gnn_trunk_forward.launches = 0
 
 
+def _forward_kernel(dims, kp: KernelParams, src_aug_T, adj_T) -> Tensor:
+    """Check, allocate, launch and count one forward on the card."""
+    E, Ds, H, C = dims[:4]
+    _check_inputs("gnn_trunk_fwd", E, Ds, C, {"src_aug_T": src_aug_T, "adj_T": adj_T})
+    dev = src_aug_T.device
+    if kp.blob.device != dev:
+        raise ValueError(f"the trunk's parameters must lie on {dev}")
+    B = src_aug_T.shape[-1]
+    out = torch.empty((E * C, B), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    launch_kernel(*dims, kp, src_aug_T, adj_T, out)
+    gnn_trunk_forward.launches += 1
+    return out
+
+
 def launch_kernel(E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
                   kp: KernelParams, src_aug_T, adj_T, out) -> None:
-    """One launch of the kernel on tensors the caller has checked, on the
-    current stream.  It does not count: :func:`gnn_trunk_forward` is the path
-    the model takes, and this entry lets a measurement time the kernel
-    alone."""
+    """One launch of the forward kernel on tensors the caller has checked,
+    on the current stream.  It does not count: :func:`gnn_trunk_forward` is
+    the path the model takes, and this entry lets a measurement time the
+    kernel alone."""
     embed_relu, gnn_relu = _relu_flags(use_relu)
     dev = src_aug_T.device
     with torch.cuda.device(dev):
-        rc = _library().gnn_trunk_fwd(
+        rc = _library("gnn_trunk_fwd").gnn_trunk_fwd(
             src_aug_T.data_ptr(), adj_T.data_ptr(), kp.blob.data_ptr(), out.data_ptr(),
             src_aug_T.shape[-1], E, Ds, H, kp.F1, C, embed_layer_n, 1 + gnn_layer_n,
             float(max_edge_dist), int(embed_relu), int(gnn_relu), kp.blob.numel(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check_rc(rc)
+    _check_rc("gnn_trunk_fwd", rc)
+
+
+def gnn_trunk_backward(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    kp: KernelParams, src_aug_T, adj_T, g,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The trunk's vjp for the output cotangent ``g``: ``(dblob, dsrc_aug_T,
+    dadj_T)``, the parameter gradient in the buffer's layout.  The plain
+    version for CPU tensors, the ``gnn_trunk_bwd`` CUDA kernel for tensors
+    on the card.  ``gnn_trunk_backward.launches`` counts kernel launches."""
+    dims = (E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu)
+    dev = src_aug_T.device
+    if dev.type == "cpu":
+        flat = unpack_blob(kp, Ds, H, C, embed_layer_n, gnn_layer_n)
+        dflat, dsrc, dadj = gnn_trunk_backward_plain(*dims, flat, src_aug_T, adj_T, g)
+        return param_blob(dflat, embed_layer_n, gnn_layer_n).blob, dsrc, dadj
+    if dev.type != "cuda":
+        raise ValueError(f"gnn_trunk_backward: no path for device {dev}")
+    _check_inputs("gnn_trunk_bwd", E, Ds, C, {"src_aug_T": src_aug_T, "adj_T": adj_T, "g": g})
+    blob = kp.blob
+    if blob.device != dev or blob.dtype != torch.float32 or not blob.is_contiguous():
+        raise ValueError(f"the trunk's parameters must be a contiguous float32 buffer on {dev}")
+    B = src_aug_T.shape[-1]
+    dsrc = torch.empty_like(src_aug_T)
+    dadj = torch.empty_like(adj_T)
+    if B == 0:
+        return torch.zeros_like(blob), dsrc, dadj
+    dblob = torch.empty_like(blob)
+    with torch.cuda.device(dev):
+        conf = backward_config(E, Ds, H, kp.F1, C, embed_layer_n, gnn_layer_n, B)
+    partial = torch.empty((conf["ctas"], blob.numel()), dtype=torch.float32, device=dev)
+    launch_backward_kernel(*dims, kp, src_aug_T, adj_T, g, dsrc, dadj, dblob, partial)
+    gnn_trunk_backward.launches += 1
+    return dblob, dsrc, dadj
+
+
+gnn_trunk_backward.launches = 0
+
+
+def launch_backward_kernel(E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+                           kp: KernelParams, src_aug_T, adj_T, g, dsrc, dadj, dblob,
+                           partial) -> None:
+    """One launch of the backward kernel (and its row sum) on tensors the
+    caller has checked, on the current stream; ``partial`` is the
+    (CTAs, n_params) scratch buffer.  It does not count, like
+    :func:`launch_kernel`."""
+    embed_relu, gnn_relu = _relu_flags(use_relu)
+    dev = src_aug_T.device
+    with torch.cuda.device(dev):
+        rc = _library("gnn_trunk_bwd").gnn_trunk_bwd(
+            src_aug_T.data_ptr(), adj_T.data_ptr(), g.data_ptr(), kp.blob.data_ptr(),
+            dsrc.data_ptr(), dadj.data_ptr(), dblob.data_ptr(), partial.data_ptr(),
+            src_aug_T.shape[-1], E, Ds, H, kp.F1, C, embed_layer_n, 1 + gnn_layer_n,
+            float(max_edge_dist), int(embed_relu), int(gnn_relu), kp.blob.numel(),
+            partial.shape[0], torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_rc("gnn_trunk_bwd", rc)
+
+
+class GNNTrunk(torch.autograd.Function):
+    """The differentiable trunk, counterpart of ``make_gnn_fused``
+    (gnn_pallas.py:811): the forward kernel (plain version on the CPU),
+    saving only its inputs, and a backward that recomputes the forward inside
+    the backward kernel (plain vjp on the CPU).
+
+    ``GNNTrunk.apply(dims, F1, blob, src_aug_T, adj_T)`` with ``dims`` the
+    leading eight arguments of :func:`gnn_trunk_forward`."""
+
+    @staticmethod
+    def forward(ctx, dims, F1, blob, src_aug_T, adj_T):
+        kp = KernelParams(blob, F1)
+        ctx.dims, ctx.F1 = dims, F1
+        ctx.save_for_backward(blob, src_aug_T, adj_T)
+        if src_aug_T.device.type == "cpu":
+            E, Ds, H, C, embed_layer_n, gnn_layer_n = dims[:6]
+            flat = unpack_blob(kp, Ds, H, C, embed_layer_n, gnn_layer_n)
+            return gnn_trunk_forward_plain(*dims, flat, src_aug_T, adj_T)
+        return _forward_kernel(dims, kp, src_aug_T, adj_T)
+
+    @staticmethod
+    def backward(ctx, g):
+        blob, src_aug_T, adj_T = ctx.saved_tensors
+        dblob, dsrc, dadj = gnn_trunk_backward(
+            *ctx.dims, KernelParams(blob, ctx.F1), src_aug_T, adj_T,
+            g.to(torch.float32).contiguous())
+        return None, None, dblob, dsrc, dadj
 
 
 def trunk_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params) -> dict:
-    """Floating-point operations and bytes one trunk call needs.
+    """Floating-point operations and bytes one trunk forward needs.
 
     Operations count the forward's arithmetic (a multiply-add is two, an
     exp or rsqrt one) with the per-edge work taken over the ``n_edges``
@@ -355,3 +548,19 @@ def trunk_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params
         cin = C
     nbytes = 4 * (B * (E * Ds + E * E + E * C) + n_params)
     return {"flops": int(ops), "bytes": int(nbytes)}
+
+
+def trunk_bwd_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params) -> dict:
+    """Floating-point operations and bytes one trunk backward needs: the
+    recomputed forward plus its vjp.
+
+    The vjp is counted at twice the forward's operations (every product of
+    the forward has two in its vjp, one for the input's gradient and one for
+    the weight's, and every elementwise step about twice its own), so the
+    call needs three forwards' operations.  Bytes count each input (src,
+    adjacency, cotangent, parameters) read once and each output (dsrc,
+    dadj, dparams) written once (float32)."""
+    fwd = trunk_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params)
+    nbytes = 4 * (B * (E * Ds + E * E + E * C) + n_params)  # inputs
+    nbytes += 4 * (B * (E * Ds + E * E) + n_params)  # outputs
+    return {"flops": 3 * fwd["flops"], "bytes": int(nbytes)}

@@ -7,6 +7,7 @@ run in interpret mode, at rtol 1e-5 / atol 1e-6 (the bar of
 (``chip_smoke.py`` holds it against the plain version there); here the
 wrapper must take the plain path for CPU tensors without counting a launch.
 """
+import dataclasses
 import functools
 
 import jax
@@ -174,3 +175,153 @@ def test_wrapper_refuses_kernel_params_on_cpu():
     with pytest.raises(ValueError, match="flat params"):
         gnn_trunk.gnn_trunk_forward(*dims(cfg, 6, src_T), kp, torch.tensor(src_T),
                                     torch.tensor(adj_T))
+
+
+# ---------------------------------------------------------------- backward
+# The gradient bar of the JAX package (tests/test_models.py:611-613): per
+# leaf, |port - jax| <= 1e-4 * max|jax| + 1e-5.  tanh, because relu's
+# subgradients flip at zero under a different summation order.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+
+def assert_grad_close(got, want, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bar = GRAD_RTOL * np.abs(want).max() + GRAD_ATOL
+    assert np.abs(got - want).max() <= bar, (what, np.abs(got - want).max(), bar)
+
+
+def test_plain_backward_matches_pallas_bwd_kernel():
+    """``gnn_trunk_backward_plain`` against the Pallas backward kernel
+    ``make_gnn_bwd`` in interpret mode (B = 128, blk 64, two grid steps
+    that accumulate the parameter gradients), which applies ``jax.vjp`` of
+    ``xla_transposed_forward`` inside its body: E = 4, tanh, EmbedConv
+    without extra layers and one conv layer, graph 0 edgeless (the
+    interpreted vjp grows with E^2 and depth: at E = 6 and the default depth
+    it takes minutes on the CPU; ``test_gnnbase_grads_match_jax`` holds
+    E = 6 and 20 at the default depth).  Held at the JAX gradient bar per
+    leaf."""
+    E, B = 4, 128
+    cfg = JModelConfig(max_edge_dist=MAX_EDGE, compute_dtype="float32", embed_use_relu=False,
+                       gnn_use_relu=False, gnn_impl="transposed", embed_layer_n=0,
+                       gnn_layer_n=0)
+    params = JGNNBase(cfg, graph_aggr="node").init(
+        jax.random.PRNGKey(5), jnp.zeros((E, 8)), jnp.zeros((E, E)),
+        jnp.zeros((1,), jnp.int32))["params"]
+    _, _, _, _, _, src_T, adj_T = make_case(E, False, B=B, seed=5)
+    d = dims(cfg, E, src_T)
+    g = np.random.RandomState(7).randn(E * cfg.gnn_hidden_size, B).astype(np.float32)
+    jflat = gnn_pallas.flatten_gnn_params(params, cfg.embed_layer_n, cfg.gnn_layer_n)
+    bwd = gnn_pallas.make_gnn_bwd(*d, tuple(p.shape for p in jflat), blk=64, interpret=True)
+    jdp, jds, jda = bwd(jflat, jnp.asarray(src_T), jnp.asarray(adj_T), jnp.asarray(g))
+    dp, ds, da = gnn_trunk.gnn_trunk_backward_plain(
+        *d, port_flat(cfg, params), torch.tensor(src_T), torch.tensor(adj_T), torch.tensor(g))
+    assert len(dp) == len(jdp)
+    for i, (a, b) in enumerate(zip(dp, jdp)):
+        assert_grad_close(a.numpy(), b, f"param {i}")
+    assert_grad_close(ds.numpy(), jds, "dsrc")
+    assert_grad_close(da.numpy(), jda, "dadj")
+    assert np.isfinite(da.numpy()).all() and np.all(da.numpy()[:, 0] == 0.0)
+
+
+def _has_node(fn, name):
+    seen, todo = set(), [fn]
+    while todo:
+        f = todo.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        if name in type(f).__name__:
+            return True
+        todo += [n for n, _ in f.next_functions]
+    return False
+
+
+@pytest.mark.parametrize("E", [6, 20])
+def test_gnnbase_grads_match_jax(E):
+    """Weight gradients of the port's ``GNNBase`` (autograd through
+    ``GNNTrunk``, whose CPU backward is ``gnn_trunk_backward_plain``)
+    against ``jax.grad`` of the JAX package's ``GNNBase``, per flax leaf at
+    the JAX gradient bar; tanh, at E = 6 and 20, graph 0 edgeless.  The
+    JAX side is the dense per-graph GNN, which computes the same function
+    as the transposed trunk (tests/test_models.py:502-538); its gradient
+    traces in seconds where the unrolled transposed vjp takes minutes at
+    E = 20.  The loss weights each node embedding by a fixed cotangent."""
+    cfg, params, node_obs, adj, _, _, _ = make_case(E, False, B=8 if E == 20 else 24, seed=4)
+    B = node_obs.shape[0]
+    dcfg = dataclasses.replace(cfg, gnn_impl="dense")
+    jgnn = JGNNBase(dcfg, graph_aggr="none")
+    w = np.random.RandomState(9).randn(B, E, cfg.gnn_hidden_size).astype(np.float32)
+
+    def jloss(p):
+        nodes = jax.vmap(lambda n, a: jgnn.apply({"params": p}, n, a, jnp.zeros((1,), jnp.int32)))(
+            jnp.asarray(node_obs), jnp.asarray(adj))
+        return (nodes * w).sum()
+
+    jgrads = jax.jit(jax.grad(jloss))(params)
+    gnn = GNNBase(ModelConfig(max_edge_dist=MAX_EDGE, embed_use_relu=False, gnn_use_relu=False),
+                  node_feat_dim=8, graph_aggr="node")
+    gnn.load_state_dict(state_dict_from_flax(jax.tree.map(np.asarray, params)))
+    from contracts_marl_aam_corridors_tpu_torch.models import nets
+    src_T = nets._gnn_src_T(gnn, torch.tensor(node_obs))
+    adj_T = torch.tensor(adj).permute(1, 2, 0).reshape(E * E, B).contiguous()
+    out = gnn_trunk.gnn_trunk_forward(*dims(cfg, E, src_T), gnn.grad_params(), src_T, adj_T)
+    assert _has_node(out.grad_fn, "GNNTrunk")
+    loss = (out.reshape(E, cfg.gnn_hidden_size, B).permute(2, 0, 1) * torch.tensor(w)).sum()
+    names = [n for n, _ in gnn.named_parameters()]
+    got = dict(zip(names, torch.autograd.grad(loss, list(gnn.parameters()))))
+    want = state_dict_from_flax(jax.tree.map(np.asarray, jgrads))
+    assert set(got) == set(want)
+    for n in names:
+        assert_grad_close(got[n].numpy(), want[n].numpy(), n)
+
+
+def test_unpack_blob_inverts_param_blob():
+    """Exact: the flat tuple of a seeded port ``GNNBase`` -> buffer -> back."""
+    from contracts_marl_aam_corridors_tpu_torch.models import nets
+    cfg = ModelConfig(max_edge_dist=MAX_EDGE)
+    gnn = GNNBase(cfg, node_feat_dim=8, graph_aggr="node")
+    gnn.init_(torch.Generator().manual_seed(6))
+    flat = nets._flatten_gnn_params(gnn, cfg.embed_layer_n, cfg.gnn_layer_n)
+    kp = gnn_trunk.param_blob(flat, cfg.embed_layer_n, cfg.gnn_layer_n)
+    back = gnn_trunk.unpack_blob(kp, flat[0].shape[1], cfg.gnn_num_heads,
+                                 cfg.gnn_hidden_size, cfg.embed_layer_n, cfg.gnn_layer_n)
+    assert len(back) == len(flat)
+    for a, b in zip(back, flat):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_gnn_trunk_grads_reach_weights_through_blob():
+    """``GNNBase`` under grad goes through ``GNNTrunk`` with the
+    differentiable buffer; its weight gradients (the entity embedding's
+    through dsrc) must equal autograd through the flax-layout flat tuple,
+    which catches any layout error in the buffer's gradient (rtol 1e-6,
+    atol 1e-7: the same float32 arithmetic, associated differently).  On
+    the CPU neither wrapper counts a launch."""
+    E = 6
+    _, params, node_obs, adj, aid, _, _ = make_case(E, False, B=24, seed=4)
+    tcfg = ModelConfig(max_edge_dist=MAX_EDGE, embed_use_relu=False, gnn_use_relu=False)
+    gnn = GNNBase(tcfg, node_feat_dim=8, graph_aggr="node")
+    gnn.load_state_dict(state_dict_from_flax(jax.tree.map(np.asarray, params)))
+    node, adj_t, aid_t = torch.tensor(node_obs), torch.tensor(adj), torch.tensor(aid)
+    weights = list(gnn.parameters())
+    launches = gnn_trunk.gnn_trunk_forward.launches, gnn_trunk.gnn_trunk_backward.launches
+    out = gnn(node, adj_t, aid_t)
+    assert _has_node(out.grad_fn, "GNNTrunk")
+    got = torch.autograd.grad((out ** 2).sum(), weights)
+    assert (gnn_trunk.gnn_trunk_forward.launches,
+            gnn_trunk.gnn_trunk_backward.launches) == launches
+
+    from contracts_marl_aam_corridors_tpu_torch.models import nets
+    src_T = nets._gnn_src_T(gnn, node)
+    adj_T = adj_t.permute(1, 2, 0).reshape(E * E, -1).contiguous()
+    flat = nets._flatten_gnn_params(gnn, tcfg.embed_layer_n, tcfg.gnn_layer_n)
+    ref = gnn_trunk.gnn_trunk_forward_plain(
+        E, src_T.shape[0] // E, tcfg.gnn_num_heads, tcfg.gnn_hidden_size, tcfg.embed_layer_n,
+        tcfg.gnn_layer_n, MAX_EDGE, (False, False), flat, src_T, adj_T)
+    ref = nets._gnn_aggregate(ref, "node", aid_t, E, tcfg.gnn_hidden_size)
+    want = torch.autograd.grad((ref ** 2).sum(), weights)
+    names = [n for n, _ in gnn.named_parameters()]
+    for n, a, b in zip(names, got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=n)
+    assert got[names.index("embed_layer.entity_embed.weight")].abs().sum() > 0

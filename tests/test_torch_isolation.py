@@ -11,7 +11,7 @@ import torch
 from contracts_marl_aam_corridors_tpu_torch.config.physics import vehicle_config
 from contracts_marl_aam_corridors_tpu_torch.envs import env as env_mod
 from contracts_marl_aam_corridors_tpu_torch.envs.types import EnvParams
-from contracts_marl_aam_corridors_tpu_torch.learner import Runner
+from contracts_marl_aam_corridors_tpu_torch.learner import GRMAPPOTrainer, Runner
 from contracts_marl_aam_corridors_tpu_torch.models import GRMAPPOPolicy, ModelConfig, PolicyDims
 
 torch.set_num_threads(1)
@@ -60,8 +60,10 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         env_mod.reset(ep, 2, torch.Generator())
     cpu_policy = GRMAPPOPolicy(cfg, _dims(ep), device="cpu")
+    trainer = GRMAPPOTrainer(cpu_policy)
     with pytest.raises(RuntimeError, match="CUDA"):
-        Runner(env_params=ep, policy=cpu_policy, n_rollout_threads=2, episode_length=2)
+        Runner(env_params=ep, policy=cpu_policy, trainer=trainer, n_rollout_threads=2,
+               episode_length=2)
     # asked for explicitly, the CPU works
-    Runner(env_params=ep, policy=cpu_policy, n_rollout_threads=2, episode_length=2,
-           device="cpu")
+    Runner(env_params=ep, policy=cpu_policy, trainer=trainer, n_rollout_threads=2,
+           episode_length=2, device="cpu")

@@ -29,6 +29,7 @@ from contracts_marl_aam_corridors_tpu.models import PolicyDims as JDims
 from contracts_marl_aam_corridors_tpu_torch.config.physics import vehicle_config
 from contracts_marl_aam_corridors_tpu_torch.envs.types import EnvParams, env_state_from_numpy
 from contracts_marl_aam_corridors_tpu_torch.learner import (
+    GRMAPPOTrainer,
     RolloutCarry,
     Runner,
     TrainState,
@@ -109,8 +110,8 @@ def test_collect_window_matches_jax(monkeypatch):
     assert np.all(np.asarray(jbuf.masks) == 1.0)
 
     ep, pol, ts = port_setup(25, jts.params)
-    runner = Runner(env_params=ep, policy=pol, n_rollout_threads=B, episode_length=T,
-                    dtype=torch.float64, device="cpu")
+    runner = Runner(env_params=ep, policy=pol, trainer=GRMAPPOTrainer(pol),
+                    n_rollout_threads=B, episode_length=T, dtype=torch.float64, device="cpu")
     jactions = np.asarray(jbuf.actions).astype(np.int64)  # (T, B, N, 1)
     step = iter(range(T))
 
@@ -139,8 +140,8 @@ def test_collect_window_matches_jax(monkeypatch):
 
 def test_eval_episode_runs_end_to_end():
     ep, pol, ts = port_setup(6)
-    runner = Runner(env_params=ep, policy=pol, n_rollout_threads=2, episode_length=6,
-                    device="cpu")
+    runner = Runner(env_params=ep, policy=pol, trainer=GRMAPPOTrainer(pol),
+                    n_rollout_threads=2, episode_length=6, device="cpu")
     out = runner.eval_episode(ts, seed=5, n_eval=4)
     assert set(out) == EVAL_KEYS
     assert all(np.isfinite(v) for v in out.values())
