@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the torch port's july rollout, evaluation and PPO training on one
-CUDA card.
+"""Drive the torch port's july rollout, evaluation, PPO training and train
+CLI on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the port's kernels (``csrc/gnn_trunk_fwd.cu`` and
-``csrc/gnn_trunk_bwd.cu``, one ``nvcc`` each for sm_90a, in parallel), holds
-each against its plain torch version on the card, runs ``Runner.collect`` at
-4096 envs x 25 steps, ``Runner.eval_episode`` at 1024 envs and
-``Runner.train_episode`` at 1024 envs x 25 steps with 15 PPO epochs, all at
-the default model's full width, and checks that every GNN trunk forward and
-backward of those paths went through the kernels.  Prints one JSON line per
-phase (device, build, kernel, backward, rollout, eval, train, kernels), then
-the card's name and power limit as ``nvidia-smi`` gives them, then
-``{"ok": true, "device": {...}}`` as the last line.  Any failed check raises,
+Builds the port's kernels (``csrc/gnn_trunk_fwd.cu``, ``gnn_trunk_bwd.cu``,
+``gnn_trunk_dual_fwd.cu`` and ``gnn_trunk_dual_bwd.cu``, one ``nvcc`` each
+for sm_90a, in parallel), holds each against its plain torch version on the
+card, runs ``Runner.collect`` at 4096 envs x 25 steps,
+``Runner.eval_episode`` at 1024 envs, ``Runner.train_episode`` at 1024 envs
+x 25 steps with 15 PPO epochs, both trunks through
+``nets.gnn_transposed_apply_dual`` at the update's shape, and the train CLI
+(``cli.train.main``, three flagship episodes, a checkpoint restore and a
+resume), all at the default model's full width, and checks that every GNN
+trunk forward and backward of those paths went through the kernels.  Prints
+one JSON line per phase (device, build, kernel, backward, dual, rollout,
+eval, train, cli, kernels), then the card's name and power limit as
+``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
+last line.  Any failed check raises,
 so the script exits non-zero without that line.  Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -22,9 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,6 +42,7 @@ N_ENVS, STEPS, EVAL_ENVS = 4096, 25, 1024
 # graphs per trunk call of the update, 15 epochs of one minibatch
 TRAIN_ENVS, PPO_EPOCH, CHUNK = 1024, 15, 10
 TRAIN_EPISODES = 3
+CLI_EPISODES = 3  # then the last one again, resumed from its checkpoint
 CMP_ENVS = 64  # the card-vs-CPU update
 SEED = 0
 # Kernel vs plain version.  Both compute in float32 with sums in different
@@ -48,23 +55,26 @@ SEED = 0
 # float64 evaluation than twice the plain version is (kernel_vs_f64).
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # E = 20 sums over 20 sources per target and layer: the trunk bar of the JAX
-# package (tests/test_models.py:529)
+# package (tests/test_models.py:529).  There the float64 criterion compares
+# relative L2 errors, not the largest error: the largest of 655,360 errors
+# is one element's, and its kernel-to-plain ratio spreads widely from draw
+# to draw while the L2 ratio stays near 1 (tools/forward_f64.py).
 WIDE_TOL = dict(rtol=2e-4, atol=2e-5)
 NET_TOL = dict(rtol=2e-4, atol=2e-5)
-# Backward kernel vs plain backward, per leaf (each parameter, dsrc, dadj):
-# with tanh the JAX package's gradient bar |k - p| <= 1e-4 max|p| + 1e-5
+# Backward kernels vs plain backward, per leaf (each parameter, dsrc, dadj):
+# the JAX package's gradient bar |k - p| <= 1e-4 max|p| + 1e-5
 # (tests/test_models.py:611-613); where the float32 plain version is itself
 # further than that from a float64 evaluation, the kernel must be no further
-# from the float64 evaluation than twice the plain version is.  With relu,
-# rounding flips subgradients at zero, so the relative L2 error per leaf is
-# held at 1e-4; where the float32 plain version is itself further than that
-# from the float64 evaluation, the kernel must be within 1e-4 of the float64
-# evaluation instead.  One flip is enough to need that: at 76,800 random
-# graphs a single relu pre-activation within float32 rounding of zero moves
-# its graph's gradient by tens of percent and every leaf's relative L2 by
-# some 1e-4 (graphs_off_f64 counts the graphs so moved).
+# from the float64 evaluation than twice the plain version is.  With relu a
+# relu input within float32 rounding of zero may take the other sign in the
+# kernel's order of the sums than in the plain version's, and that one
+# subgradient flip moves its graph's gradient by tens of percent and every
+# parameter leaf by some 1e-4 (at 76,800 random graphs it happens in a
+# graph or two).  So with relu the graphs where a relu input of either trunk
+# lies within float32 rounding of zero (tools/relu_flips.py
+# near_zero_graphs) are set aside: their cotangent is zeroed, so they add
+# nothing to any leaf, and the other graphs are held at the bar.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
-RELU_REL_L2 = 1e-4
 # Card vs CPU update: losses and norms at rtol 1e-4.  The first epoch's
 # policy loss is minus the mean normalized advantage, zero up to rounding, so
 # an atol of 1e-6 stands beside the rtol.
@@ -103,6 +113,64 @@ def time_ms(torch, fn, reps=30, warmup=3) -> float:
     return statistics.median(times)
 
 
+def bound(work) -> tuple[float, str]:
+    """The least time the card could take for ``work`` (operations at the
+    FP32 peak, bytes at the HBM rate), in ms, and which of the two bounds
+    it."""
+    ops_ms = work["flops"] / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = work["bytes"] / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def forward_vs_f64(k, p, x, wide: bool) -> tuple[dict, bool]:
+    """How far a forward kernel's output ``k`` and the float32 plain
+    version's ``p`` lie from the float64 evaluation ``x``, and whether the
+    kernel is no further than twice the plain version: by the largest error,
+    or at E = 20 (``wide``) by the relative L2 error."""
+    ek, ep = k.double() - x, p.double() - x
+    row = {"kernel_vs_f64": ek.abs().max().item(), "plain_vs_f64": ep.abs().max().item(),
+           "kernel_vs_f64_rel_l2": (ek.norm() / x.norm()).item(),
+           "plain_vs_f64_rel_l2": (ep.norm() / x.norm()).item()}
+    key = "_rel_l2" if wide else ""
+    return row, row[f"kernel_vs_f64{key}"] <= 2 * row[f"plain_vs_f64{key}"]
+
+
+def compare_leaves(got, want, exact) -> list[dict]:
+    """Per leaf (each parameter, dsrc, dadj), kernel vs float32 plain vs
+    float64 plain: the gradient bar of GRAD_RTOL and GRAD_ATOL, or, where
+    the plain version misses it against float64, the kernel within twice the
+    plain version's distance from float64."""
+    rows = []
+    for k, p, x in zip(got, want, exact):
+        k, p, x = k.double(), p.double(), x.double()
+        err = (k - p).abs().max().item()
+        bar = GRAD_RTOL * p.abs().max().item() + GRAD_ATOL
+        k64, p64 = (k - x).abs().max().item(), (p - x).abs().max().item()
+        ok = err <= bar or (p64 > bar and k64 <= 2 * p64)
+        rows.append({"max_abs_err": err, "bar": bar, "kernel_vs_f64": k64,
+                     "plain_vs_f64": p64, "ok": ok})
+    return rows
+
+
+def train_state_tensors(ts) -> dict:
+    """Every tensor and number of a TrainState (both networks, both Adam
+    states, the value normalizer), by name."""
+    out = {}
+    for side in ("actor", "critic"):
+        for k, v in getattr(ts.params, side).state_dict().items():
+            out[f"{side}.{k}"] = v
+        opt = getattr(ts, f"{side}_opt").state_dict()
+        for i, st in opt["state"].items():
+            for k, v in st.items():
+                out[f"{side}_opt.{i}.{k}"] = v
+        for j, group in enumerate(opt["param_groups"]):
+            out[f"{side}_opt.group{j}.lr"] = group["lr"]
+    if ts.vn is not None:
+        for f in dataclasses.fields(ts.vn):
+            out[f"vn.{f.name}"] = getattr(ts.vn, f.name)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -123,6 +191,7 @@ def main() -> int:
         GRMAPPOPolicy, ModelConfig, PolicyDims, nets,
     )
     from contracts_marl_aam_corridors_tpu_torch.ops import gnn_trunk
+    from contracts_marl_aam_corridors_tpu_torch.tools import relu_flips
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -223,15 +292,13 @@ def main() -> int:
                                                       compute_dtype=torch.float64)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            k64 = (got - exact).abs().max().item()
-            p64 = (want - exact).abs().max().item()
+            f64, f64_ok = forward_vs_f64(got, want, exact, tol is WIDE_TOL)
             ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
-                  and k64 <= 2 * p64)
+                  and f64_ok)
             conf = gnn_trunk.kernel_config(E, args[1], args[2], c.embed_hidden_size, args[3],
                                            c.embed_layer_n, c.gnn_layer_n)
             checks.append({"case": name, "E": E, "B": nd.shape[0], "max_abs_err": err,
-                           **tol, "kernel_vs_f64": k64, "plain_vs_f64": p64, "ok": ok,
-                           **conf})
+                           **tol, **f64, "ok": ok, **conf})
             if not ok:
                 emit({"phase": "kernel", "checks": checks})
                 raise AssertionError(f"kernel disagrees with the plain version: {name}")
@@ -258,9 +325,7 @@ def main() -> int:
         n_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
         work = gnn_trunk.trunk_work(E, args[1], args[2], kp.F1, args[3], cfg.embed_layer_n,
                                     cfg.gnn_layer_n, src_T.shape[1], n_edges, kp.blob.numel())
-    ops_ms = work["flops"] / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = work["bytes"] / PEAK_BYTES_PER_S * 1e3
-    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    bound_ms, bound_by = bound(work)
     timing = {"B": src_T.shape[1], "E": E, "ms": kernel_ms, "wrapper_ms": wrapper_ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
               "flops": work["flops"], "bytes": work["bytes"], "edges": n_edges,
@@ -274,27 +339,19 @@ def main() -> int:
                                      c.gnn_layer_n)
         return list(flat) + [dsrc, dadj]
 
-    def compare_leaves(got, want, exact, relu):
-        """Per leaf (each parameter, dsrc, dadj): the JAX gradient bar (tanh)
-        or the relative L2 error (relu); see GRAD_RTOL and RELU_REL_L2."""
-        rows = []
-        for k, p, x in zip(got, want, exact):
-            k, p, x = k.double(), p.double(), x.double()
-            err = (k - p).abs().max().item()
-            if relu:
-                rel = lambda a, b: ((a - b).norm() / b.norm().clamp(min=1e-300)).item()
-                r = rel(k, p)
-                r64k, r64p = rel(k, x), rel(p, x)
-                ok = r <= RELU_REL_L2 or (r64p > RELU_REL_L2 and r64k <= RELU_REL_L2)
-                rows.append({"max_abs_err": err, "rel_l2": r, "kernel_vs_f64_rel_l2": r64k,
-                             "plain_vs_f64_rel_l2": r64p, "ok": ok})
-            else:
-                bar = GRAD_RTOL * p.abs().max().item() + GRAD_ATOL
-                k64, p64 = (k - x).abs().max().item(), (p - x).abs().max().item()
-                ok = err <= bar or (p64 > bar and k64 <= 2 * p64)
-                rows.append({"max_abs_err": err, "bar": bar, "kernel_vs_f64": k64,
-                             "plain_vs_f64": p64, "ok": ok})
-        return rows
+    def set_aside_relu_flips(c, args, trunks, adj_T, gs) -> int:
+        """With relu, zero the cotangents ``gs`` of every graph where a relu
+        input of one of the ``trunks`` ((flat params, src) pairs) lies within
+        float32 rounding of zero, and return how many graphs that is; with
+        tanh, 0."""
+        if not (c.embed_use_relu or c.gnn_use_relu):
+            return 0
+        near = torch.zeros(adj_T.shape[-1], dtype=torch.bool, device=adj_T.device)
+        for flat, src_T in trunks:
+            near |= relu_flips.near_zero_graphs(args, flat, src_T, adj_T)
+        for g in gs:
+            g[:, near] = 0.0
+        return int(near.sum().item())
 
     bwd_checks, bwd_max_err = [], 0.0
     with torch.no_grad():
@@ -315,9 +372,10 @@ def main() -> int:
             args = trunk_args(c, E, Ds)
             g = torch.randn((E * c.gnn_hidden_size, B), generator=gen, device=dev)
             kp = gnn.kernel_params()
-            got = grad_leaves(c, Ds, *gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g))
             flat = gnn_trunk.unpack_blob(kp, Ds, c.gnn_num_heads, c.gnn_hidden_size,
                                          c.embed_layer_n, c.gnn_layer_n)
+            aside = set_aside_relu_flips(c, args, [(flat, src_T)], adj_T, [g])
+            got = grad_leaves(c, Ds, *gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g))
             dflat, ds, da = gnn_trunk.gnn_trunk_backward_plain(*args, flat, src_T, adj_T, g)
             want = list(dflat) + [ds, da]
             dflat, ds, da = gnn_trunk.gnn_trunk_backward_plain(
@@ -325,11 +383,10 @@ def main() -> int:
             exact = list(dflat) + [ds, da]
             torch.cuda.synchronize()
             finite = all(bool(torch.isfinite(t).all()) for t in got)
-            rows = compare_leaves(got, want, exact, relu=c.gnn_use_relu)
+            rows = compare_leaves(got, want, exact)
             # graphs whose dsrc lies further than 1e-3 of its largest entry
-            # from float64: where a relu pre-activation is within float32
-            # rounding of zero, its subgradient flips and that one graph's
-            # gradient jumps; the other graphs' distance shows the rest
+            # from float64 (where a relu input flipped, that one graph's
+            # gradient jumps), and the other graphs' distance
             size = exact[-2].abs().amax(0)
             off = lambda a: (a.double() - exact[-2]).abs().amax(0) > 1e-3 * size
             keep = ~off(want[-2])
@@ -342,9 +399,10 @@ def main() -> int:
             err = max(r["max_abs_err"] for r in rows)
             conf = gnn_trunk.backward_config(E, Ds, args[2], c.embed_hidden_size, args[3],
                                              c.embed_layer_n, c.gnn_layer_n, B)
-            worst = max(rows, key=lambda r: r.get("rel_l2", r.get("max_abs_err", 0) / r.get("bar", 1)))
+            worst = max(rows, key=lambda r: r["max_abs_err"] / r["bar"])
             bwd_checks.append({"case": name, "E": E, "B": B, "max_abs_err": err, "finite": finite,
-                               "ok": ok, "graphs_off_f64": graphs_off_f64,
+                               "ok": ok, "relu_graphs_set_aside": aside,
+                               "graphs_off_f64": graphs_off_f64,
                                "worst_leaf": rows.index(worst), **worst, **conf,
                                "leaves": rows if not ok else len(rows)})
             del got, want, exact, dflat, ds, da
@@ -384,10 +442,7 @@ def main() -> int:
         upd_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
         bwork = gnn_trunk.trunk_bwd_work(E, Ds, args[2], kp.F1, args[3], cfg.embed_layer_n,
                                          cfg.gnn_layer_n, B_UPD, upd_edges, kp.blob.numel())
-    b_ops_ms = bwork["flops"] / PEAK_FP32_FLOPS * 1e3
-    b_bytes_ms = bwork["bytes"] / PEAK_BYTES_PER_S * 1e3
-    bwd_bound_ms, bwd_bound_by = ((b_ops_ms, "operations") if b_ops_ms >= b_bytes_ms
-                                  else (b_bytes_ms, "bytes"))
+    bwd_bound_ms, bwd_bound_by = bound(bwork)
     emit({"phase": "backward", "kernel": "gnn_trunk_bwd", "checks": bwd_checks,
           "B": B_UPD, "E": E, "ms": bwd_ms, "forward_kernel_ms": upd_fwd_ms,
           "gnn_trunk_fwd_plus_bwd_ms": fwd_bwd_ms, "plain_ms": plain_bwd_ms,
@@ -395,6 +450,212 @@ def main() -> int:
           "bytes": bwork["bytes"], "edges": upd_edges, **conf,
           "ptxas": built["gnn_trunk_bwd"]["ptxas"], "library_ms": None,
           "library_note": "no PyTorch call computes the trunk's vjp"})
+
+    # ---------------------------------------------------------------- dual
+    # both trunks in one launch each way (make_gnn_fused_dual), reached as
+    # in the JAX package through nets.gnn_transposed_apply_dual; the policy
+    # routes neither, as the JAX package's does not
+    def dual_args(c, E, Ds, ga, gc):
+        flat = lambda gnn: nets._flatten_gnn_params(gnn, c.embed_layer_n, c.gnn_layer_n)
+        return trunk_args(c, E, Ds), ga.kernel_params(), gc.kernel_params(), flat(ga), flat(gc)
+
+    def pair(c, node_feat_dim, state_a, state_c):
+        out = []
+        for aggr, state in (("node", state_a), ("global", state_c)):
+            gnn = nets.GNNBase(c, node_feat_dim, aggr).to(dev)
+            gnn.load_state_dict(state)
+            out.append(gnn)
+        return out
+
+    actor_gnn, critic_gnn = params.actor.gnn_base, params.critic.gnn_base
+    tanh_pair = pair(tcfg, ep.node_feat_dim, actor_gnn.state_dict(), critic_gnn.state_dict())
+    wide_critic = nets.GNNBase(tcfg, 8, "global")
+    wide_critic.init_(torch.Generator().manual_seed(SEED + 3))
+    wide_pair = [wide_tanh, wide_critic.to(dev)]
+    dual_fwd_checks, dual_bwd_checks, dual_fwd_err, dual_bwd_err = [], [], 0.0, 0.0
+    with torch.no_grad():
+        for name, (ga, gc), c, nd, ad, tol in (
+                ("rollout launch batch, random graphs, relu", (actor_gnn, critic_gnn), cfg,
+                 rand_node, rand_adj, KERNEL_TOL),
+                ("update batch, relu", (actor_gnn, critic_gnn), cfg, upd_node, upd_adj,
+                 KERNEL_TOL),
+                ("ragged B, tanh", tanh_pair, tcfg, ragged_node, ragged_adj, KERNEL_TOL),
+                ("edgeless graphs, relu", (actor_gnn, critic_gnn), cfg, ragged_node, edgeless,
+                 KERNEL_TOL),
+                ("E=20, tanh", wide_pair, tcfg, wide_node, wide_adj, WIDE_TOL)):
+            E, B = nd.shape[1], nd.shape[0]
+            src_a, adj_T = transposed(ga, nd, ad)
+            src_c, _ = transposed(gc, nd, ad)
+            args, kp_a, kp_c, fa, fc = dual_args(c, E, src_a.shape[0] // E, ga, gc)
+            got = gnn_trunk.gnn_trunk_dual_forward(*args, kp_a, kp_c, src_a, src_c, adj_T)
+            want = gnn_trunk.gnn_trunk_dual_forward_plain(*args, fa, fc, src_a, src_c, adj_T)
+            exact = gnn_trunk.gnn_trunk_dual_forward_plain(*args, fa, fc, src_a, src_c, adj_T,
+                                                           compute_dtype=torch.float64)
+            single = (gnn_trunk.gnn_trunk_forward(*args, kp_a, src_a, adj_T),
+                      gnn_trunk.gnn_trunk_forward(*args, kp_c, src_c, adj_T))
+            torch.cuda.synchronize()
+            err = max((k - p).abs().max().item() for k, p in zip(got, want))
+            f64 = [forward_vs_f64(k, p, x, tol is WIDE_TOL) for k, p, x in zip(got, want, exact)]
+            ok = all(bool(torch.isfinite(k).all()) and torch.allclose(k, p, **tol)
+                     for k, p in zip(got, want)) and all(f[1] for f in f64)
+            dual_fwd_checks.append({
+                "case": name, "E": E, "B": B, "max_abs_err": err, **tol,
+                **{key: [f[0][key] for f in f64] for key in f64[0][0]},
+                "vs_two_single_launches_max_abs": max(
+                    (k - s1).abs().max().item() for k, s1 in zip(got, single)),
+                "ok": ok, **gnn_trunk.dual_kernel_config(E, args[1], args[2], kp_a.F1, args[3],
+                                                         c.embed_layer_n, c.gnn_layer_n)})
+            if not ok:
+                emit({"phase": "dual", "forward_checks": dual_fwd_checks})
+                raise AssertionError(f"dual forward kernel disagrees with the plain version: {name}")
+            dual_fwd_err = max(dual_fwd_err, err)
+
+        for name, (ga, gc), c, nd, ad in (
+                ("update batch, tanh", tanh_pair, tcfg, upd_node, upd_adj),
+                ("update batch, relu", (actor_gnn, critic_gnn), cfg, upd_node, upd_adj),
+                ("ragged B, tanh", tanh_pair, tcfg, ragged_node, ragged_adj),
+                ("edgeless graphs, tanh", tanh_pair, tcfg, ragged_node, edgeless),
+                ("E=20, tanh", wide_pair, tcfg, wide_node, wide_adj)):
+            E, B = nd.shape[1], nd.shape[0]
+            src_a, adj_T = transposed(ga, nd, ad)
+            src_c, _ = transposed(gc, nd, ad)
+            Ds = src_a.shape[0] // E
+            args, kp_a, kp_c, fa, fc = dual_args(c, E, Ds, ga, gc)
+            g_a, g_c = (torch.randn((E * c.gnn_hidden_size, B), generator=gen, device=dev)
+                        for _ in range(2))
+            aside = set_aside_relu_flips(c, args, [(fa, src_a), (fc, src_c)], adj_T, [g_a, g_c])
+            dba, dbc, dsa, dsc, dadj = gnn_trunk.gnn_trunk_dual_backward(
+                *args, kp_a, kp_c, src_a, src_c, adj_T, g_a, g_c)
+            got = (grad_leaves(c, Ds, dba, dsa, dadj)[:-2] + grad_leaves(c, Ds, dbc, dsc, dadj)[:-2]
+                   + [dsa, dsc, dadj])
+            leaves = lambda r: list(r[0]) + list(r[1]) + [r[2], r[3], r[4]]
+            want = leaves(gnn_trunk.gnn_trunk_dual_backward_plain(
+                *args, fa, fc, src_a, src_c, adj_T, g_a, g_c))
+            exact = leaves(gnn_trunk.gnn_trunk_dual_backward_plain(
+                *args, fa, fc, src_a, src_c, adj_T, g_a, g_c, compute_dtype=torch.float64))
+            sa1 = gnn_trunk.gnn_trunk_backward(*args, kp_a, src_a, adj_T, g_a)
+            sc1 = gnn_trunk.gnn_trunk_backward(*args, kp_c, src_c, adj_T, g_c)
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            rows = compare_leaves(got, want, exact)
+            ok = finite and all(r["ok"] for r in rows)
+            err = max(r["max_abs_err"] for r in rows)
+            worst = max(rows, key=lambda r: r["max_abs_err"] / r["bar"])
+            vs_single = {
+                "dparams": max((dba - sa1[0]).abs().max().item(), (dbc - sc1[0]).abs().max().item()),
+                "dsrc": max((dsa - sa1[1]).abs().max().item(), (dsc - sc1[1]).abs().max().item()),
+                "dadj": (dadj - (sa1[2] + sc1[2])).abs().max().item()}
+            dual_bwd_checks.append({
+                "case": name, "E": E, "B": B, "max_abs_err": err, "finite": finite, "ok": ok,
+                "relu_graphs_set_aside": aside, "worst_leaf": rows.index(worst), **worst,
+                "vs_two_single_launches_max_abs": vs_single,
+                **gnn_trunk.dual_backward_config(E, Ds, args[2], kp_a.F1, args[3],
+                                                 c.embed_layer_n, c.gnn_layer_n, B),
+                "leaves": rows if not ok else len(rows)})
+            del got, want, exact, sa1, sc1
+            torch.cuda.empty_cache()
+            if not ok:
+                emit({"phase": "dual", "forward_checks": dual_fwd_checks,
+                      "backward_checks": dual_bwd_checks})
+                raise AssertionError(f"dual backward kernel disagrees with the plain version: {name}")
+            dual_bwd_err = max(dual_bwd_err, err)
+
+        # timing at the update's shape (76,800 graphs, E = 6, relu)
+        E = ep.num_entities
+        src_a, adj_T = transposed(actor_gnn, upd_node, upd_adj)
+        src_c, _ = transposed(critic_gnn, upd_node, upd_adj)
+        Ds = src_a.shape[0] // E
+        args, kp_a, kp_c, fa, fc = dual_args(cfg, E, Ds, actor_gnn, critic_gnn)
+        out_a, out_c = (torch.empty((E * args[3], B_UPD), device=dev) for _ in range(2))
+        dual_fwd_ms = time_ms(torch, lambda: gnn_trunk.launch_dual_kernel(
+            *args, kp_a, kp_c, src_a, src_c, adj_T, out_a, out_c), reps=10)
+        two_fwd_ms = time_ms(torch, lambda: (
+            gnn_trunk.launch_kernel(*args, kp_a, src_a, adj_T, out_a),
+            gnn_trunk.launch_kernel(*args, kp_c, src_c, adj_T, out_c)), reps=10)
+        plain_dual_fwd_ms = time_ms(torch, lambda: gnn_trunk.gnn_trunk_dual_forward_plain(
+            *args, fa, fc, src_a, src_c, adj_T), reps=5, warmup=1)
+        g_a, g_c = (torch.randn((E * args[3], B_UPD), generator=gen, device=dev)
+                    for _ in range(2))
+        n = kp_a.blob.numel()
+        dsa, dsc, dadj = torch.empty_like(src_a), torch.empty_like(src_c), torch.empty_like(adj_T)
+        dblobs = torch.empty((2 * n,), device=dev)
+        dconf = gnn_trunk.dual_backward_config(E, Ds, args[2], kp_a.F1, args[3], cfg.embed_layer_n,
+                                               cfg.gnn_layer_n, B_UPD)
+        dpartial = torch.empty((dconf["ctas"], 2 * n), device=dev)
+        dual_bwd_ms = time_ms(torch, lambda: gnn_trunk.launch_dual_backward_kernel(
+            *args, kp_a, kp_c, src_a, src_c, adj_T, g_a, g_c, dsa, dsc, dadj, dblobs, dpartial),
+            reps=10)
+        spartial = torch.empty((gnn_trunk.backward_config(
+            E, Ds, args[2], kp_a.F1, args[3], cfg.embed_layer_n, cfg.gnn_layer_n,
+            B_UPD)["ctas"], n), device=dev)
+        two_bwd_ms = time_ms(torch, lambda: (
+            gnn_trunk.launch_backward_kernel(*args, kp_a, src_a, adj_T, g_a, dsa, dadj,
+                                             dblobs[:n], spartial),
+            gnn_trunk.launch_backward_kernel(*args, kp_c, src_c, adj_T, g_c, dsc, dadj,
+                                             dblobs[n:], spartial)), reps=10)
+        plain_dual_bwd_ms = time_ms(torch, lambda: gnn_trunk.gnn_trunk_dual_backward_plain(
+            *args, fa, fc, src_a, src_c, adj_T, g_a, g_c), reps=5, warmup=1)
+        upd_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
+        dwork = gnn_trunk.dual_work(E, Ds, args[2], kp_a.F1, args[3], cfg.embed_layer_n,
+                                    cfg.gnn_layer_n, B_UPD, upd_edges, n)
+        dbwork = gnn_trunk.dual_bwd_work(E, Ds, args[2], kp_a.F1, args[3], cfg.embed_layer_n,
+                                         cfg.gnn_layer_n, B_UPD, upd_edges, n)
+    dual_fwd_bound, dual_fwd_by = bound(dwork)
+    dual_bwd_bound, dual_bwd_by = bound(dbwork)
+
+    # the path: both trunks with a gradient through gnn_transposed_apply_dual
+    # at the update's shape, counted, then profiled
+    upd_aid = torch.randint(0, ep.num_agents, (B_UPD, 1), generator=gen, device=dev)
+    dual_weights = list(actor_gnn.parameters()) + list(critic_gnn.parameters())
+
+    def dual_path():
+        na, nc = nets.gnn_transposed_apply_dual(cfg, actor_gnn, critic_gnn, upd_node, upd_adj,
+                                                upd_aid, cfg.global_aggr_type)
+        return torch.autograd.grad((na ** 2).sum() + (nc ** 2).sum(), dual_weights)
+
+    counters = (gnn_trunk.gnn_trunk_forward, gnn_trunk.gnn_trunk_backward,
+                gnn_trunk.gnn_trunk_dual_forward, gnn_trunk.gnn_trunk_dual_backward)
+    for f in counters:
+        f.launches = 0
+    dual_grads = dual_path()
+    torch.cuda.synchronize()
+    path_launches = [f.launches for f in counters]
+    if path_launches != [0, 0, 1, 1]:
+        raise AssertionError(f"gnn_transposed_apply_dual launched (fwd, bwd, dual fwd, dual bwd) "
+                             f"{path_launches}, expected [0, 0, 1, 1]")
+    if not all(bool(torch.isfinite(gr).all()) for gr in dual_grads):
+        raise AssertionError("non-finite gradients through gnn_transposed_apply_dual")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dual_path()
+        torch.cuda.synchronize()
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = lambda pattern: sum(c for k, c in names if re.search(pattern, k))
+    # the forward kernel is one template over the number of trunks: its
+    # dual instance is gnn_trunk_fwd_kernel<2, ...> (mangled ...ILi2E...)
+    profiled = {"gnn_trunk_fwd_kernel<2>": count(r"gnn_trunk_fwd_kernel(<2\b|ILi2E)"),
+                "gnn_trunk_dual_bwd_kernel": count("gnn_trunk_dual_bwd_kernel"),
+                "sum_rows_kernel": count("sum_rows_kernel"),
+                "single trunk kernels": count(r"gnn_trunk_fwd_kernel(<1\b|ILi1E)")
+                + count("gnn_trunk_bwd_kernel")}
+    if list(profiled.values()) != [1, 1, 1, 0]:
+        raise AssertionError(f"the dual path's profile counts {profiled}: {names}")
+    emit({"phase": "dual", "kernels": ["gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd"],
+          "forward_checks": dual_fwd_checks, "backward_checks": dual_bwd_checks,
+          "B": B_UPD, "E": E, "edges": upd_edges,
+          "forward": {"ms": dual_fwd_ms, "two_single_ms": two_fwd_ms,
+                      "plain_ms": plain_dual_fwd_ms, "bound_ms": dual_fwd_bound,
+                      "bound_by": dual_fwd_by, **dwork,
+                      **gnn_trunk.dual_kernel_config(E, Ds, args[2], kp_a.F1, args[3],
+                                                     cfg.embed_layer_n, cfg.gnn_layer_n)},
+          "backward": {"ms": dual_bwd_ms, "two_single_ms": two_bwd_ms,
+                       "plain_ms": plain_dual_bwd_ms, "bound_ms": dual_bwd_bound,
+                       "bound_by": dual_bwd_by, **dbwork, **dconf},
+          "path_launches": {"dual_fwd": path_launches[2], "dual_bwd": path_launches[3],
+                            "single": path_launches[:2]},
+          "profiled_kernels": profiled,
+          "ptxas": {k: built[k]["ptxas"] for k in ("gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd")},
+          "library_ms": None, "library_note": "no PyTorch call computes either trunk"})
 
     # ---------------------------------------------------------------- rollout
     runner = Runner(env_params=ep, policy=policy, trainer=rollout_trainer,
@@ -641,6 +902,89 @@ def main() -> int:
                           "first_epoch_grad_max_abs_err": max(grad_err.values()),
                           "train_info_card": infos["card"], "train_info_cpu": infos["cpu"]}})
 
+    # ---------------------------------------------------------------- cli
+    # the train entry point as a user runs it: three flagship episodes with
+    # in-training evaluation, then the last one again, resumed from its checkpoint
+    from contracts_marl_aam_corridors_tpu_torch.cli import train as cli_train
+    from contracts_marl_aam_corridors_tpu_torch.config.flags import parse_all
+    from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    cli_argv = ["--num_agents", str(ep.num_agents), "--n_rollout_threads", str(TRAIN_ENVS),
+                "--episode_length", str(STEPS), "--ppo_epoch", str(PPO_EPOCH),
+                "--num_mini_batch", "1", "--data_chunk_length", str(CHUNK), "--use_eval",
+                "--log_interval", "1", "--seed", str(SEED), "--compute_dtype", "float32"]
+    steps_for = lambda episodes: ["--num_env_steps", str(episodes * STEPS * TRAIN_ENVS)]
+    n_evals = 1  # at episode 0: the default --eval_interval is 25
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = cli_argv + ["--run_dir", tmp] + steps_for(CLI_EPISODES)
+        gnn_trunk.gnn_trunk_forward.launches = 0
+        gnn_trunk.gnn_trunk_backward.launches = 0
+        t0 = time.perf_counter()
+        run_dir, cli_ts = cli_train.main(argv)
+        torch.cuda.synchronize()
+        cli_seconds = time.perf_counter() - t0
+        fl, bl = gnn_trunk.gnn_trunk_forward.launches, gnn_trunk.gnn_trunk_backward.launches
+        want = (CLI_EPISODES * fwd_expected + n_evals * ep.episode_length,
+                CLI_EPISODES * bwd_expected)
+        if (fl, bl) != want:
+            raise AssertionError(f"the train CLI launched the trunk kernels {(fl, bl)} times "
+                                 f"(forward, backward), expected {want}")
+        with open(Path(run_dir) / "metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        train_recs = [r for r in records if "value_loss" in r]
+        eval_recs = [r for r in records if "eval_success_rate" in r]
+        if len(train_recs) != CLI_EPISODES or len(eval_recs) != n_evals:
+            raise AssertionError(f"metrics.jsonl holds {len(train_recs)} episodes and "
+                                 f"{len(eval_recs)} evaluations")
+        if not all(v == v and abs(v) != float("inf") for r in records for v in r.values()):
+            raise AssertionError("non-finite metrics in metrics.jsonl")
+        # each episode's seconds from the log's clock, the evaluation after
+        # episode 0 left out
+        marks = [0.0, train_recs[0]["wall_s"], eval_recs[0]["wall_s"]] + [
+            r["wall_s"] for r in train_recs[1:]]
+        episode_seconds = [marks[1] - marks[0]] + [b - a for a, b in zip(marks[2:], marks[3:])]
+
+        models = Path(run_dir) / "models"
+        _, _, cli_trainer, _ = cli_train.build(parse_all(argv))
+        restored, saved = restore_checkpoint(str(models), cli_trainer.init_state(SEED + 99))
+        held, back = train_state_tensors(cli_ts), train_state_tensors(restored)
+        differ = sorted(k for k, v in held.items() if not (
+            torch.equal(back[k], v) and back[k].dtype == v.dtype and back[k].device == v.device
+            if isinstance(v, torch.Tensor) else back.get(k) == v))
+        if saved != CLI_EPISODES - 1 or set(back) != set(held) or differ:
+            raise AssertionError(f"the checkpoint of episode {saved} does not restore the run's "
+                                 f"state bit for bit: {differ[:5]}")
+
+        gnn_trunk.gnn_trunk_forward.launches = 0
+        gnn_trunk.gnn_trunk_backward.launches = 0
+        t0 = time.perf_counter()
+        # the resumed run restarts at the saved episode, as the JAX CLI does
+        cli_train.main(cli_argv + ["--run_dir", tmp, "--model_dir", str(models)]
+                       + steps_for(CLI_EPISODES))
+        torch.cuda.synchronize()
+        resume_seconds = time.perf_counter() - t0
+        resumed = (gnn_trunk.gnn_trunk_forward.launches, gnn_trunk.gnn_trunk_backward.launches)
+        with open(models / "latest.json") as f:
+            latest = json.load(f)["episode"]
+        if resumed != (fwd_expected, bwd_expected) or latest != CLI_EPISODES - 1:
+            raise AssertionError(f"the resumed run launched {resumed} and saved episode {latest}")
+        saved_files = sorted(p.name for p in models.iterdir())
+    emit({"phase": "cli", "argv": cli_argv + steps_for(CLI_EPISODES),
+          "episodes": CLI_EPISODES, "seconds": cli_seconds,
+          "episode_seconds": episode_seconds,
+          "seconds_per_episode": statistics.mean(episode_seconds),
+          "env_steps_per_s": TRAIN_ENVS * STEPS / statistics.mean(episode_seconds),
+          "eval_seconds": eval_recs[0]["wall_s"] - train_recs[0]["wall_s"],
+          "trunk_launches": {"forward": fl, "backward": bl, "expected": list(want)},
+          "last_episode": {k: train_recs[-1][k] for k in (
+              "average_episode_rewards", "value_loss", "policy_loss", "env_steps_per_sec")},
+          "eval": {k: eval_recs[0][k] for k in ("eval_average_episode_rewards",
+                                                 "eval_success_rate")},
+          "restore": {"episode": saved, "tensors_and_values": len(held), "bit_for_bit": True},
+          "resume": {"seconds": resume_seconds, "launches": list(resumed),
+                     "latest_episode": latest},
+          "saved": saved_files})
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -657,6 +1001,20 @@ def main() -> int:
         "launches": episodes[-1]["backward_launches"], "max_abs_err": bwd_max_err,
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
+    }, {
+        "name": "gnn_trunk_dual_fwd", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/gnn_trunk_dual_fwd.cu",
+        "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:703",
+        "launches": path_launches[2], "max_abs_err": dual_fwd_err,
+        "ms": dual_fwd_ms, "two_single_ms": two_fwd_ms, "plain_ms": plain_dual_fwd_ms,
+        "bound_ms": dual_fwd_bound, "bound_by": dual_fwd_by, "library_ms": None,
+    }, {
+        "name": "gnn_trunk_dual_bwd", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/gnn_trunk_dual_bwd.cu",
+        "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:712",
+        "launches": path_launches[3], "max_abs_err": dual_bwd_err,
+        "ms": dual_bwd_ms, "two_single_ms": two_bwd_ms, "plain_ms": plain_dual_bwd_ms,
+        "bound_ms": dual_bwd_bound, "bound_by": dual_bwd_by, "library_ms": None,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

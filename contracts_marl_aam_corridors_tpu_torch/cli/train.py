@@ -1,0 +1,182 @@
+"""Training entry point, graph path (port of the JAX package's
+``cli/train.py`` ``build`` and ``main``; reference
+``onpolicy/scripts/train_mpe.py``).
+
+    python -m contracts_marl_aam_corridors_tpu_torch.cli.train \\
+        --scenario_name nav_metered_one_goal_graph_rotate_tube_july \\
+        --num_agents 3 --episode_length 25 --n_rollout_threads 1024 \\
+        --ppo_epoch 15 --num_mini_batch 1 --data_chunk_length 10 \\
+        --num_env_steps 2000000 --dynamics_type air_taxi --compute_dtype float32
+
+The flags are the JAX package's (``config/flags.py``).  It runs on one CUDA
+card; ``--cuda`` (the reference's store_false flag) runs it on the CPU.
+Writes ``<run_dir>/<env>/<scenario>/<algorithm>/<experiment>/seed<seed>/``:
+``metrics.jsonl`` and ``models/`` (``ckpt_<episode>/``, ``latest.json``,
+``config.json``).  ``--model_dir`` resumes from a checkpoint: the state is
+restored whole and training restarts at the saved episode, as the JAX
+package's does.  Differences from the JAX package: one device (no data
+mesh, ROADMAP A10); the classic-MPE path (``build_mpe``/``main_mpe``) waits
+for ROADMAP A9; ``--warm_start_dir``, ``--use_curriculum``,
+``--fuse_gnn_trunks``, ``--use_centralized_V`` (off) and ``--compute_dtype
+bfloat16`` are refused, naming the ROADMAP item that brings them; seeds are
+integers drawn from ``--seed``, not JAX keys.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+
+def build(args, device=None):
+    """The env parameters, policy, trainer and runner of a graph-path run
+    (the JAX package's ``build``, cli/train.py:21-107), on ``device``."""
+    from ..config.flags import build_env_params, build_model_config, not_ported
+    from ..learner import GRMAPPOTrainer, Runner
+    from ..models import GRMAPPOPolicy, PolicyDims
+
+    if args.fuse_gnn_trunks:
+        raise not_ported("--fuse_gnn_trunks", "A11")
+    if args.use_curriculum:
+        raise not_ported("--use_curriculum", "A12")
+    if not args.use_centralized_V:
+        raise not_ported("--use_centralized_V (a critic without the shared observation)", "A12")
+    env_params = build_env_params(args)
+    cfg = build_model_config(args)
+    dims = PolicyDims(
+        obs_dim=env_params.obs_dim,
+        cent_obs_dim=env_params.obs_dim * env_params.num_agents,
+        num_entities=env_params.num_entities,
+        node_feat_dim=env_params.node_feat_dim,
+        num_actions=env_params.num_actions,
+    )
+    policy = GRMAPPOPolicy(
+        cfg, dims, device=device, lr=args.lr, critic_lr=args.critic_lr,
+        opti_eps=args.opti_eps, max_grad_norm=args.max_grad_norm,
+        use_max_grad_norm=args.use_max_grad_norm,
+    )
+    # non-recurrent 'mappo' trains on single steps (graph_buffer.py:368);
+    # --use_naive_recurrent_policy on whole-episode chunks
+    # (graph_buffer.py:455-596)
+    if not cfg.use_recurrent_policy:
+        chunk = 1
+    elif args.use_naive_recurrent_policy and not args.use_recurrent_policy:
+        chunk = args.episode_length
+    else:
+        chunk = args.data_chunk_length
+    trainer = GRMAPPOTrainer(
+        policy,
+        clip_param=args.clip_param,
+        ppo_epoch=args.ppo_epoch,
+        num_mini_batch=args.num_mini_batch,
+        data_chunk_length=chunk,
+        value_loss_coef=args.value_loss_coef,
+        entropy_coef=args.entropy_coef,
+        huber_delta=args.huber_delta,
+        gamma=args.gamma,
+        gae_lambda=args.gae_lambda,
+        use_clipped_value_loss=args.use_clipped_value_loss,
+        use_huber_loss=args.use_huber_loss,
+        use_valuenorm=args.use_valuenorm and not args.use_popart,
+        use_popart=args.use_popart,
+        use_value_active_masks=args.use_value_active_masks,
+        use_policy_active_masks=args.use_policy_active_masks,
+        use_gae=args.use_gae,
+        use_proper_time_limits=args.use_proper_time_limits,
+    )
+    runner = Runner(
+        env_params=env_params, policy=policy, trainer=trainer,
+        n_rollout_threads=args.n_rollout_threads, episode_length=args.episode_length,
+        device=device,
+    )
+    return env_params, policy, trainer, runner
+
+
+def main(argv=None):
+    """Train from the command line ``argv`` (the JAX package's ``main``,
+    cli/train.py:251-426, graph path).  Returns the run directory and the
+    final ``TrainState``, the one the last checkpoint holds."""
+    from ..config.flags import not_ported, parse_all
+    from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+    from ..utils.logging import MetricsLogger, agent_env_infos, print_box
+
+    args = parse_all(argv)
+    if args.env_name == "MPE" or args.scenario_name.startswith("simple_"):
+        raise not_ported("the classic-MPE training path", "A9")
+    if args.warm_start_dir:
+        raise not_ported("--warm_start_dir", "A5")
+    device = None if args.cuda else "cpu"
+    env_params, policy, trainer, runner = build(args, device)
+
+    run_dir = os.path.join(
+        args.run_dir, args.env_name, args.scenario_name, args.algorithm_name,
+        args.experiment_name, f"seed{args.seed}",
+    )
+    save_dir = os.path.join(run_dir, "models")
+    os.makedirs(save_dir, exist_ok=True)
+    logger = MetricsLogger(run_dir)
+    config = vars(args)
+
+    ts = trainer.init_state(args.seed)
+    carry = runner.init_carry(args.seed + 1)
+    # the minibatch permutations' draws
+    gen = torch.Generator(device=policy.device).manual_seed(args.seed + 2)
+
+    start_episode = 0
+    if args.model_dir:
+        # the whole TrainState (weights, both optimizers, value normalizer);
+        # training restarts at the saved episode, as the JAX CLI's does
+        ts, start_episode = restore_checkpoint(args.model_dir, ts)
+        print(f"resumed from {args.model_dir} at episode {start_episode}", flush=True)
+
+    # in-training eval (reference GMPERunner.eval, cadence at
+    # graph_mpe_runner.py:162-194): eval_episodes deterministic episodes in
+    # one batch every eval_interval episodes
+    n_eval = max(args.n_eval_rollout_threads, args.eval_episodes)
+    episodes = int(args.num_env_steps) // args.episode_length // args.n_rollout_threads
+    print_box(
+        f"{args.scenario_name} | {args.num_agents} agents | "
+        f"{args.n_rollout_threads} envs on {policy.device} | {episodes} episodes"
+    )
+    start = time.time()
+    for episode in range(start_episode, episodes):
+        if args.use_linear_lr_decay:
+            policy.lr_decay(ts, episode, episodes)
+        ts, carry, train_info, env_info = runner.train_episode(ts, carry, gen)
+
+        total_steps = (episode + 1) * args.episode_length * args.n_rollout_threads
+        if episode % args.save_interval == 0 or episode == episodes - 1:
+            save_checkpoint(save_dir, ts, episode, config=config)
+        if episode % args.log_interval == 0:
+            info = {k: float(v) for k, v in train_info.items()}
+            info.update(agent_env_infos(env_info, args.num_agents))
+            sps = total_steps / max(time.time() - start, 1e-9)
+            info["env_steps_per_sec"] = sps
+            logger.log(info, total_steps)
+            print(
+                f"ep {episode}/{episodes} steps {total_steps} "
+                f"rew {info.get('average_episode_rewards', float('nan')):.3f} "
+                f"vloss {info.get('value_loss', float('nan')):.4f} "
+                f"sps {sps:,.0f}",
+                flush=True,
+            )
+        if args.use_eval and episode % args.eval_interval == 0:
+            einfo = runner.eval_episode(ts, args.seed + 1000 + episode, n_eval)
+            logger.log(einfo, total_steps)
+            print(
+                f"[eval ep {episode}] rew {einfo['eval_average_episode_rewards']:.2f} "
+                f"success {einfo['eval_success_rate']:.3f} "
+                f"all-success {einfo['eval_all_success_rate']:.3f} "
+                f"collisions {einfo['eval_num_agent_collisions']:.2f}",
+                flush=True,
+            )
+    save_checkpoint(save_dir, ts, episodes - 1 if episodes else 0, config=config)
+    print(f"[FINAL SAVE] checkpoints at: {save_dir}", flush=True)
+    logger.close()
+    return run_dir, ts
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

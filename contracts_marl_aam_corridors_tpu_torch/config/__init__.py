@@ -1,3 +1,4 @@
+from .flags import build_env_params, build_model_config, parse_all, scenario_kind
 from .physics import (
     DynamicsType,
     RewardToggles,
@@ -7,6 +8,10 @@ from .physics import (
 )
 
 __all__ = [
+    "build_env_params",
+    "build_model_config",
+    "parse_all",
+    "scenario_kind",
     "DynamicsType",
     "RewardToggles",
     "RewardWeights",

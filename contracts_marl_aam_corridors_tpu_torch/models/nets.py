@@ -12,7 +12,9 @@ The GNN has one formulation here, the transposed trunk of
 is the minor axis, and the whole trunk is one call of
 ``ops.gnn_trunk.gnn_trunk_forward`` (the CUDA kernel on the card, the plain
 version on the CPU); under grad it goes through ``GNNTrunk``, whose
-backward is the ``gnn_trunk_bwd`` kernel on the card.  The JAX package's
+backward is the ``gnn_trunk_bwd`` kernel on the card.
+``gnn_transposed_apply_dual`` runs the actor's and the critic's trunks in
+one call of the dual kernels; the policy does not route it.  The JAX package's
 dense per-graph ``EmbedConv`` /
 ``TransformerConv`` modules compute the same function and are not ported.
 
@@ -329,6 +331,29 @@ def _flatten_gnn_params(gnn: GNNBase, embed_layer_n: int, gnn_layer_n: int) -> t
     return gnn_trunk.flatten_gnn_params(gnn.flax_tree(), embed_layer_n, gnn_layer_n)
 
 
+def _trunk_params(cfg: ModelConfig, gnn: GNNBase, on_card: bool):
+    """The trunk parameters in the form the call needs.  With grad: the
+    differentiable buffer, whose gradient (the backward kernel's on the card)
+    reaches the weights, and the entity embedding's through dsrc.  Without:
+    the card's kernel takes the buffer kept across calls, the CPU's plain
+    version the flat tuple."""
+    if torch.is_grad_enabled() and gnn.embed_layer.lin1.weight.requires_grad:
+        return gnn.grad_params()
+    if on_card:
+        return gnn.kernel_params()
+    return _flatten_gnn_params(gnn, cfg.embed_layer_n, cfg.gnn_layer_n)
+
+
+def _trunk_dims(cfg: ModelConfig, E: int, Ds: int) -> tuple:
+    return (E, Ds, cfg.gnn_num_heads, cfg.gnn_hidden_size, cfg.embed_layer_n, cfg.gnn_layer_n,
+            cfg.max_edge_dist, (cfg.embed_use_relu, cfg.gnn_use_relu))
+
+
+def _adj_T(adj: Tensor) -> Tensor:
+    B, E = adj.shape[:2]
+    return adj.to(torch.float32).permute(1, 2, 0).reshape(E * E, B).contiguous()
+
+
 def gnn_transposed_apply(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: Tensor,
                          agent_id: Tensor | None, aggr: str) -> Tensor:
     """GNNBase forward in the transposed (entity x feature, batch) layout.
@@ -336,23 +361,30 @@ def gnn_transposed_apply(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: 
     ``aggr``: 'node' (ego gather via ``agent_id``) or a global pool
     ('mean'/'max'/'add').  Returns (B, C) float32.
     """
-    B, E, _ = node_obs.shape
-    C = cfg.gnn_hidden_size
+    E = node_obs.shape[1]
     src_T = _gnn_src_T(gnn, node_obs)
-    Ds = src_T.shape[0] // E
-    adj_T = adj.to(torch.float32).permute(1, 2, 0).reshape(E * E, B).contiguous()
-    # with grad: the differentiable buffer, whose gradient (the backward
-    # kernel's on the card) reaches the weights, and the entity embedding's
-    # through dsrc.  Without: the card's kernel takes the buffer kept across
-    # calls, the CPU's plain version the flat tuple.
-    if torch.is_grad_enabled() and gnn.embed_layer.lin1.weight.requires_grad:
-        params = gnn.grad_params()
-    elif src_T.is_cuda:
-        params = gnn.kernel_params()
-    else:
-        params = _flatten_gnn_params(gnn, cfg.embed_layer_n, cfg.gnn_layer_n)
     out = gnn_trunk.gnn_trunk_forward(
-        E, Ds, cfg.gnn_num_heads, C, cfg.embed_layer_n, cfg.gnn_layer_n,
-        cfg.max_edge_dist, (cfg.embed_use_relu, cfg.gnn_use_relu), params, src_T, adj_T,
-    )
-    return _gnn_aggregate(out, aggr, agent_id, E, C)
+        *_trunk_dims(cfg, E, src_T.shape[0] // E), _trunk_params(cfg, gnn, src_T.is_cuda),
+        src_T, _adj_T(adj))
+    return _gnn_aggregate(out, aggr, agent_id, E, cfg.gnn_hidden_size)
+
+
+def gnn_transposed_apply_dual(cfg: ModelConfig, gnn_actor: GNNBase, gnn_critic: GNNBase,
+                              node_obs: Tensor, adj: Tensor, agent_id: Tensor,
+                              critic_aggr: str) -> tuple[Tensor, Tensor]:
+    """The actor's ('node') and the critic's (global pool ``critic_aggr``)
+    GNN trunks on the same graphs in one call of
+    ``ops.gnn_trunk.gnn_trunk_dual_forward``: one kernel launch on the card
+    for both forwards, and under grad one for both backwards.  Counterpart
+    of the JAX package's ``gnn_transposed_apply_dual`` (nets.py:499-525);
+    computes what two :func:`gnn_transposed_apply` calls compute.  Returns
+    ``(nbd_a, nbd_c)``, each (B, C) float32.  The policy does not call it,
+    as the JAX package's policy does not (policy.py:216-219)."""
+    E, C = node_obs.shape[1], cfg.gnn_hidden_size
+    src_a = _gnn_src_T(gnn_actor, node_obs)
+    src_c = _gnn_src_T(gnn_critic, node_obs)
+    out_a, out_c = gnn_trunk.gnn_trunk_dual_forward(
+        *_trunk_dims(cfg, E, src_a.shape[0] // E), _trunk_params(cfg, gnn_actor, src_a.is_cuda),
+        _trunk_params(cfg, gnn_critic, src_a.is_cuda), src_a, src_c, _adj_T(adj))
+    return (_gnn_aggregate(out_a, "node", agent_id, E, C),
+            _gnn_aggregate(out_c, critic_aggr, None, E, C))

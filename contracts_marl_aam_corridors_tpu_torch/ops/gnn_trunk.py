@@ -9,7 +9,11 @@ as :func:`gnn_trunk_forward_plain`), the Pallas TPU kernels
 :func:`gnn_trunk_forward`) and ``make_gnn_bwd`` (:594-667, replaced by
 ``csrc/gnn_trunk_bwd.cu`` behind :func:`gnn_trunk_backward`), and the
 ``custom_vjp`` ``make_gnn_fused`` (:811) that joins them, here the
-``torch.autograd.Function`` :class:`GNNTrunk`.
+``torch.autograd.Function`` :class:`GNNTrunk`; and the pair of trunks in one
+launch, ``make_gnn_fused_dual`` (:676-808: its Pallas kernels ``fwd_kernel``
+:703 and ``bwd_kernel`` :712, replaced by ``csrc/gnn_trunk_dual_fwd.cu``
+behind :func:`gnn_trunk_dual_forward` and ``csrc/gnn_trunk_dual_bwd.cu``
+behind :func:`gnn_trunk_dual_backward`, joined by :class:`GNNTrunkDual`).
 
 Layout contract (float32), as in the JAX package:
   src_aug_T:  (E*Ds, B)  per-entity EmbedConv input [feat, Embed(etype)],
@@ -20,7 +24,8 @@ Layout contract (float32), as in the JAX package:
 Both wrappers run the plain version for tensors on the CPU and the kernel
 for tensors on the card; on the card they launch the kernel or raise.  The
 kernels are compiled with ``nvcc`` at first use, each from its source in the
-package, into ``build/kernels/`` at the repository root.
+package (and the headers it includes), into ``build/kernels/`` at the
+repository root.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,7 +49,7 @@ Tensor = torch.Tensor
 NEG_F32 = float(torch.finfo(torch.float32).min)
 LN_EPS = 1e-5
 
-KERNELS = ("gnn_trunk_fwd", "gnn_trunk_bwd")
+KERNELS = ("gnn_trunk_fwd", "gnn_trunk_bwd", "gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -198,6 +204,44 @@ def gnn_trunk_backward_plain(
     return tuple(grads[:-2]), grads[-2], grads[-1]
 
 
+def gnn_trunk_dual_forward_plain(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    params_a, params_c, src_a_T, src_c_T, adj_T, compute_dtype=torch.float32,
+) -> tuple[Tensor, Tensor]:
+    """Both trunks on one adjacency: ``(out_a, out_c)``, each (E*C, B).
+
+    The pair function ``f_pair`` of ``make_gnn_fused_dual``
+    (gnn_pallas.py:694-701), as two calls of :func:`gnn_trunk_forward_plain`
+    that differ in their flat parameters and EmbedConv inputs."""
+    dims = (E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu)
+    return (gnn_trunk_forward_plain(*dims, params_a, src_a_T, adj_T, compute_dtype),
+            gnn_trunk_forward_plain(*dims, params_c, src_c_T, adj_T, compute_dtype))
+
+
+def gnn_trunk_dual_backward_plain(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    params_a, params_c, src_a_T, src_c_T, adj_T, g_a, g_c, compute_dtype=torch.float32,
+) -> tuple[tuple, tuple, Tensor, Tensor, Tensor]:
+    """The vjp of :func:`gnn_trunk_dual_forward_plain` for the cotangents
+    ``g_a`` and ``g_c``: ``(dparams_a, dparams_c, dsrc_a_T, dsrc_c_T,
+    dadj_T)``, taken with ``torch.autograd.grad`` of the pair in
+    ``compute_dtype``; ``dadj_T`` is the sum of both trunks' distance
+    gradients.  Counterpart of what ``make_gnn_fused_dual``'s backward
+    kernel traces (gnn_pallas.py:719-720)."""
+    cdt = compute_dtype
+    with torch.enable_grad():
+        pa = [p.detach().to(cdt).requires_grad_(True) for p in params_a]
+        pc = [p.detach().to(cdt).requires_grad_(True) for p in params_c]
+        sa, sc, adj = (t.detach().to(cdt).requires_grad_(True) for t in (src_a_T, src_c_T, adj_T))
+        out_a, out_c = gnn_trunk_dual_forward_plain(
+            E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu, pa, pc, sa, sc,
+            adj, compute_dtype=cdt)
+        grads = torch.autograd.grad((out_a, out_c), pa + pc + [sa, sc, adj],
+                                    grad_outputs=(g_a.to(out_a.dtype), g_c.to(out_c.dtype)))
+    n = len(pa)
+    return tuple(grads[:n]), tuple(grads[n:2 * n]), grads[-3], grads[-2], grads[-1]
+
+
 # --------------------------------------------------------------------------
 # The CUDA kernels: build, load, launch.
 # --------------------------------------------------------------------------
@@ -213,13 +257,16 @@ def _nvcc() -> str:
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` for sm_90a into a shared library with a
-    plain C interface (once per process; the file name carries the source's
-    hash).  Returns the library path, the compile seconds and the ptxas
+    plain C interface (once per process; the file name carries the hash of
+    the source and the headers it includes).  Returns the library path, the compile seconds and the ptxas
     register/spill/shared-memory lines."""
     if name not in KERNELS:
         raise ValueError(f"no kernel {name!r}; the kernels are {KERNELS}")
     source = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    text = source.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
+    tag = hashlib.sha256(b"".join([text] + [(CSRC / h.decode()).read_bytes()
+                                            for h in headers])).hexdigest()[:12]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"lib{name}_{tag}.so"
     cmd = [
@@ -254,13 +301,26 @@ def _library(name: str) -> ctypes.CDLL:
         lib.gnn_trunk_fwd.restype = i
         lib.gnn_trunk_fwd_config.argtypes = [i, i, i, i, i, i, i, ip, ip, ip]
         lib.gnn_trunk_fwd_config.restype = i
-    else:
+    elif name == "gnn_trunk_bwd":
         lib.gnn_trunk_bwd.argtypes = [
             p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, i, p,
         ]
         lib.gnn_trunk_bwd.restype = i
         lib.gnn_trunk_bwd_config.argtypes = [i, i, i, i, i, i, i, ll, ip, ip, ip, ip]
         lib.gnn_trunk_bwd_config.restype = i
+    elif name == "gnn_trunk_dual_fwd":
+        lib.gnn_trunk_dual_fwd.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i,
+                                           i, p]
+        lib.gnn_trunk_dual_fwd.restype = i
+        lib.gnn_trunk_dual_fwd_config.argtypes = [i, i, i, i, i, i, i, ip, ip, ip]
+        lib.gnn_trunk_dual_fwd_config.restype = i
+    else:
+        lib.gnn_trunk_dual_bwd.argtypes = [
+            p, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, i, p,
+        ]
+        lib.gnn_trunk_dual_bwd.restype = i
+        lib.gnn_trunk_dual_bwd_config.argtypes = [i, i, i, i, i, i, i, ll, ip, ip, ip, ip]
+        lib.gnn_trunk_dual_bwd_config.restype = i
     return lib
 
 
@@ -301,6 +361,28 @@ def backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
     scratch buffer); raises where it cannot run these dimensions."""
     g, smem, npar, grid = (ctypes.c_int() for _ in range(4))
     _check_rc("gnn_trunk_bwd", _library("gnn_trunk_bwd").gnn_trunk_bwd_config(
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B,
+        ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar), ctypes.byref(grid)))
+    return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value,
+            "ctas": grid.value}
+
+
+def dual_kernel_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n) -> dict:
+    """Graphs per CTA, dynamic shared memory bytes and parameter floats (of
+    one trunk) the dual forward kernel uses for these dimensions."""
+    g, smem, npar = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _check_rc("gnn_trunk_dual_fwd", _library("gnn_trunk_dual_fwd").gnn_trunk_dual_fwd_config(
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n,
+        ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar)))
+    return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value}
+
+
+def dual_backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
+    """The dual backward kernel's graphs per CTA, dynamic shared memory
+    bytes, parameter floats of one trunk and CTAs for a batch of B graphs
+    (the rows of its (CTAs, 2 n_params) scratch buffer)."""
+    g, smem, npar, grid = (ctypes.c_int() for _ in range(4))
+    _check_rc("gnn_trunk_dual_bwd", _library("gnn_trunk_dual_bwd").gnn_trunk_dual_bwd_config(
         E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B,
         ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar), ctypes.byref(grid)))
     return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value,
@@ -357,16 +439,17 @@ def unpack_blob(kp: KernelParams, Ds, H, C, embed_layer_n, gnn_layer_n) -> tuple
 
 def _check_inputs(name, E, Ds, C, tensors) -> None:
     """The kernels' contract on CUDA inputs: contiguous float32 of the
-    transposed shapes, all on one device."""
-    dev = tensors["src_aug_T"].device
-    B = tensors["src_aug_T"].shape[-1]
-    rows = {"src_aug_T": E * Ds, "adj_T": E * E, "g": E * C}
+    transposed shapes (``src*`` (E*Ds, B), ``adj*`` (E*E, B), ``g*``
+    (E*C, B)), all on one device."""
+    first = next(iter(tensors.values()))
+    dev, B = first.device, first.shape[-1]
+    rows = {"src": E * Ds, "adj": E * E, "g": E * C}
     for key, t in tensors.items():
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be a contiguous float32 tensor on {dev}")
-        if tuple(t.shape) != (rows[key], B):
+        if tuple(t.shape) != (rows[key.split("_")[0]], B):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
-                             f"expected {(rows[key], B)}")
+                             f"expected {(rows[key.split('_')[0]], B)}")
 
 
 def gnn_trunk_forward(
@@ -564,3 +647,218 @@ def trunk_bwd_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_pa
     nbytes = 4 * (B * (E * Ds + E * E + E * C) + n_params)  # inputs
     nbytes += 4 * (B * (E * Ds + E * E) + n_params)  # outputs
     return {"flops": 3 * fwd["flops"], "bytes": int(nbytes)}
+
+
+# --------------------------------------------------------------------------
+# Both trunks in one launch (make_gnn_fused_dual).
+# --------------------------------------------------------------------------
+
+
+def _check_blob(name, blob, dev) -> None:
+    if blob.device != dev or blob.dtype != torch.float32 or not blob.is_contiguous():
+        raise ValueError(f"{name}: the trunks' parameters must be contiguous float32 "
+                         f"buffers on {dev}")
+
+
+def gnn_trunk_dual_forward(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    params_a, params_c, src_a_T, src_c_T, adj_T,
+) -> tuple[Tensor, Tensor]:
+    """Both trunks' forward on one adjacency, ``(out_a, out_c)``: the plain
+    version for CPU tensors, the ``gnn_trunk_dual_fwd`` CUDA kernel (one
+    launch for both) for tensors on the card.
+
+    ``params_a`` and ``params_c`` are both :func:`flatten_gnn_params` tuples
+    or both :class:`KernelParams` buffers.  Where a gradient is needed the
+    call goes through :class:`GNNTrunkDual`, whose backward is the
+    ``gnn_trunk_dual_bwd`` kernel on the card; without one the CPU path
+    takes only the flat tuples.  ``gnn_trunk_dual_forward.launches`` counts
+    kernel launches."""
+    dims = (E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu)
+    dev = src_a_T.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"gnn_trunk_dual_forward: no path for device {dev}")
+    kernel_params = isinstance(params_a, KernelParams)
+    if kernel_params != isinstance(params_c, KernelParams):
+        raise ValueError("gnn_trunk_dual_forward: give both trunks' parameters in one layout")
+    leaves = ((params_a.blob, params_c.blob) if kernel_params
+              else tuple(params_a) + tuple(params_c))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves + (src_a_T, src_c_T, adj_T)):
+        kp_a, kp_c = ((params_a, params_c) if kernel_params else
+                      (param_blob(p, embed_layer_n, gnn_layer_n) for p in (params_a, params_c)))
+        return GNNTrunkDual.apply(dims, kp_a.F1, kp_a.blob, kp_c.blob, src_a_T, src_c_T, adj_T)
+    if dev.type == "cpu":
+        if kernel_params:
+            raise ValueError("gnn_trunk_dual_forward: the plain version takes the flat params")
+        return gnn_trunk_dual_forward_plain(*dims, params_a, params_c, src_a_T, src_c_T, adj_T)
+    if not kernel_params:
+        params_a, params_c = (param_blob(p, embed_layer_n, gnn_layer_n)
+                              for p in (params_a, params_c))
+    return _dual_forward_kernel(dims, params_a, params_c, src_a_T, src_c_T, adj_T)
+
+
+gnn_trunk_dual_forward.launches = 0
+
+
+def _dual_forward_kernel(dims, kp_a: KernelParams, kp_c: KernelParams, src_a_T, src_c_T,
+                         adj_T) -> tuple[Tensor, Tensor]:
+    """Check, allocate, launch and count one dual forward on the card."""
+    E, Ds, H, C = dims[:4]
+    _check_inputs("gnn_trunk_dual_fwd", E, Ds, C,
+                  {"src_a_T": src_a_T, "src_c_T": src_c_T, "adj_T": adj_T})
+    dev = src_a_T.device
+    for kp in (kp_a, kp_c):
+        _check_blob("gnn_trunk_dual_fwd", kp.blob, dev)
+    if kp_a.F1 != kp_c.F1 or kp_a.blob.numel() != kp_c.blob.numel():
+        raise ValueError("gnn_trunk_dual_fwd: the two trunks' parameters differ in shape")
+    B = src_a_T.shape[-1]
+    out_a = torch.empty((E * C, B), dtype=torch.float32, device=dev)
+    out_c = torch.empty_like(out_a)
+    if B == 0:
+        return out_a, out_c
+    launch_dual_kernel(*dims, kp_a, kp_c, src_a_T, src_c_T, adj_T, out_a, out_c)
+    gnn_trunk_dual_forward.launches += 1
+    return out_a, out_c
+
+
+def launch_dual_kernel(E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+                       kp_a: KernelParams, kp_c: KernelParams, src_a_T, src_c_T, adj_T,
+                       out_a, out_c) -> None:
+    """One launch of the dual forward kernel on tensors the caller has
+    checked, on the current stream.  It does not count, like
+    :func:`launch_kernel`."""
+    embed_relu, gnn_relu = _relu_flags(use_relu)
+    dev = src_a_T.device
+    with torch.cuda.device(dev):
+        rc = _library("gnn_trunk_dual_fwd").gnn_trunk_dual_fwd(
+            src_a_T.data_ptr(), src_c_T.data_ptr(), adj_T.data_ptr(), kp_a.blob.data_ptr(),
+            kp_c.blob.data_ptr(), out_a.data_ptr(), out_c.data_ptr(), src_a_T.shape[-1],
+            E, Ds, H, kp_a.F1, C, embed_layer_n, 1 + gnn_layer_n, float(max_edge_dist),
+            int(embed_relu), int(gnn_relu), kp_a.blob.numel(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_rc("gnn_trunk_dual_fwd", rc)
+
+
+def gnn_trunk_dual_backward(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    kp_a: KernelParams, kp_c: KernelParams, src_a_T, src_c_T, adj_T, g_a, g_c,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """Both trunks' vjp for the cotangents ``g_a`` and ``g_c``: ``(dblob_a,
+    dblob_c, dsrc_a_T, dsrc_c_T, dadj_T)``, the parameter gradients in the
+    buffers' layout and ``dadj_T`` the sum of both trunks' (actor, then
+    critic).  The plain version for CPU tensors, the ``gnn_trunk_dual_bwd``
+    CUDA kernel (one launch for both, then its row sum) for tensors on the
+    card.  ``gnn_trunk_dual_backward.launches`` counts kernel launches."""
+    dims = (E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu)
+    dev = src_a_T.device
+    if dev.type == "cpu":
+        unpack = lambda kp: unpack_blob(kp, Ds, H, C, embed_layer_n, gnn_layer_n)
+        dfa, dfc, dsa, dsc, dadj = gnn_trunk_dual_backward_plain(
+            *dims, unpack(kp_a), unpack(kp_c), src_a_T, src_c_T, adj_T, g_a, g_c)
+        return (param_blob(dfa, embed_layer_n, gnn_layer_n).blob,
+                param_blob(dfc, embed_layer_n, gnn_layer_n).blob, dsa, dsc, dadj)
+    if dev.type != "cuda":
+        raise ValueError(f"gnn_trunk_dual_backward: no path for device {dev}")
+    _check_inputs("gnn_trunk_dual_bwd", E, Ds, C, {
+        "src_a_T": src_a_T, "src_c_T": src_c_T, "adj_T": adj_T, "g_a": g_a, "g_c": g_c})
+    for kp in (kp_a, kp_c):
+        _check_blob("gnn_trunk_dual_bwd", kp.blob, dev)
+    if kp_a.F1 != kp_c.F1 or kp_a.blob.numel() != kp_c.blob.numel():
+        raise ValueError("gnn_trunk_dual_bwd: the two trunks' parameters differ in shape")
+    B, n = src_a_T.shape[-1], kp_a.blob.numel()
+    dsrc_a, dsrc_c = torch.empty_like(src_a_T), torch.empty_like(src_c_T)
+    dadj = torch.empty_like(adj_T)
+    if B == 0:
+        return torch.zeros_like(kp_a.blob), torch.zeros_like(kp_c.blob), dsrc_a, dsrc_c, dadj
+    dblobs = torch.empty((2 * n,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        conf = dual_backward_config(E, Ds, H, kp_a.F1, C, embed_layer_n, gnn_layer_n, B)
+    partial = torch.empty((conf["ctas"], 2 * n), dtype=torch.float32, device=dev)
+    launch_dual_backward_kernel(*dims, kp_a, kp_c, src_a_T, src_c_T, adj_T, g_a, g_c,
+                                dsrc_a, dsrc_c, dadj, dblobs, partial)
+    gnn_trunk_dual_backward.launches += 1
+    return dblobs[:n], dblobs[n:], dsrc_a, dsrc_c, dadj
+
+
+gnn_trunk_dual_backward.launches = 0
+
+
+def launch_dual_backward_kernel(E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist,
+                                use_relu, kp_a: KernelParams, kp_c: KernelParams, src_a_T,
+                                src_c_T, adj_T, g_a, g_c, dsrc_a, dsrc_c, dadj, dblobs,
+                                partial) -> None:
+    """One launch of the dual backward kernel (and its row sum) on tensors
+    the caller has checked, on the current stream; ``dblobs`` takes both
+    parameter gradients (actor, then critic) and ``partial`` is the (CTAs,
+    2 n_params) scratch buffer.  It does not count, like
+    :func:`launch_kernel`."""
+    embed_relu, gnn_relu = _relu_flags(use_relu)
+    dev = src_a_T.device
+    with torch.cuda.device(dev):
+        rc = _library("gnn_trunk_dual_bwd").gnn_trunk_dual_bwd(
+            src_a_T.data_ptr(), src_c_T.data_ptr(), adj_T.data_ptr(), g_a.data_ptr(),
+            g_c.data_ptr(), kp_a.blob.data_ptr(), kp_c.blob.data_ptr(), dsrc_a.data_ptr(),
+            dsrc_c.data_ptr(), dadj.data_ptr(), dblobs.data_ptr(), partial.data_ptr(),
+            src_a_T.shape[-1], E, Ds, H, kp_a.F1, C, embed_layer_n, 1 + gnn_layer_n,
+            float(max_edge_dist), int(embed_relu), int(gnn_relu), kp_a.blob.numel(),
+            partial.shape[0], torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_rc("gnn_trunk_dual_bwd", rc)
+
+
+class GNNTrunkDual(torch.autograd.Function):
+    """Both differentiable trunks on one adjacency, counterpart of
+    ``make_gnn_fused_dual``'s ``apply``, ``apply_fwd`` and ``apply_bwd``
+    (gnn_pallas.py:784-808): the dual forward kernel (plain version on the
+    CPU), saving only its inputs, and a backward that recomputes both
+    forwards inside the dual backward kernel (plain vjp on the CPU) and
+    returns ``(dpa, dpc, dsa, dsc, dadj)``.
+
+    ``GNNTrunkDual.apply(dims, F1, blob_a, blob_c, src_a_T, src_c_T, adj_T)``
+    with ``dims`` the leading eight arguments of
+    :func:`gnn_trunk_dual_forward`."""
+
+    @staticmethod
+    def forward(ctx, dims, F1, blob_a, blob_c, src_a_T, src_c_T, adj_T):
+        kp_a, kp_c = KernelParams(blob_a, F1), KernelParams(blob_c, F1)
+        ctx.dims, ctx.F1 = dims, F1
+        ctx.save_for_backward(blob_a, blob_c, src_a_T, src_c_T, adj_T)
+        if src_a_T.device.type == "cpu":
+            E, Ds, H, C, embed_layer_n, gnn_layer_n = dims[:6]
+            unpack = lambda kp: unpack_blob(kp, Ds, H, C, embed_layer_n, gnn_layer_n)
+            return gnn_trunk_dual_forward_plain(*dims, unpack(kp_a), unpack(kp_c), src_a_T,
+                                                src_c_T, adj_T)
+        return _dual_forward_kernel(dims, kp_a, kp_c, src_a_T, src_c_T, adj_T)
+
+    @staticmethod
+    def backward(ctx, g_a, g_c):
+        blob_a, blob_c, src_a_T, src_c_T, adj_T = ctx.saved_tensors
+        f32 = lambda g: g.to(torch.float32).contiguous()
+        grads = gnn_trunk_dual_backward(
+            *ctx.dims, KernelParams(blob_a, ctx.F1), KernelParams(blob_c, ctx.F1), src_a_T,
+            src_c_T, adj_T, f32(g_a), f32(g_c))
+        return (None, None) + tuple(grads)
+
+
+def dual_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params) -> dict:
+    """Floating-point operations and bytes one dual forward needs: two
+    trunks' operations (:func:`trunk_work`) on ``n_edges`` unmasked edges;
+    bytes count both src inputs, the one adjacency and both parameter sets
+    read once and both outputs written once (float32)."""
+    fwd = trunk_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params)
+    nbytes = 4 * (B * (2 * E * Ds + E * E + 2 * E * C) + 2 * n_params)
+    return {"flops": 2 * fwd["flops"], "bytes": int(nbytes)}
+
+
+def dual_bwd_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params) -> dict:
+    """Floating-point operations and bytes one dual backward needs: two
+    trunks' recomputed forward and vjp (:func:`trunk_bwd_work`); bytes count
+    each input (two src, the adjacency, two cotangents, two parameter sets)
+    read once and each output (two dsrc, dadj, two parameter gradients)
+    written once (float32)."""
+    bwd = trunk_bwd_work(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, n_edges, n_params)
+    nbytes = 4 * (B * (2 * E * Ds + E * E + 2 * E * C) + 2 * n_params)  # inputs
+    nbytes += 4 * (B * (2 * E * Ds + E * E) + 2 * n_params)  # outputs
+    return {"flops": 2 * bwd["flops"], "bytes": int(nbytes)}

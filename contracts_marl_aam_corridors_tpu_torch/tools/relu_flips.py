@@ -11,7 +11,9 @@ twice the edge range) from ``--seed`` in chunks, and runs
 Prints one JSON line: the relative L2 distance of dsrc and dadj over all
 graphs and over the graphs that agree, the graphs whose dsrc lies further
 than 1e-3 of its largest entry from float64, and, for the worst of them,
-every relu input whose sign differs between the two precisions.
+every relu input whose sign differs between the two precisions, and how
+many graphs ``near_zero_graphs`` sets aside (``chip_smoke.py`` holds the
+backward kernels on the other graphs).
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from ..models import GRMAPPOPolicy, ModelConfig, PolicyDims, nets
 from ..ops import gnn_trunk
 
 OFF = 1e-3  # a graph is off where its dsrc error exceeds this share of its largest entry
+# a relu input within this many times its call's float32 error of zero may flip
+ROUNDING_MARGIN = 16.0
 
 
 def _graphs(n, E, max_edge, gen, dev):
@@ -56,6 +60,25 @@ def _relu_inputs(args, flat, src_T, adj_T, dtype):
     return seen
 
 
+def near_zero_graphs(args, flat, src_T, adj_T, margin: float = ROUNDING_MARGIN):
+    """(B,) bool: the graphs in which some relu input of the plain forward
+    lies within float32 rounding of zero, in float32 or in float64, so that
+    another float32 order of the same sums (the kernel's) may give it the
+    other sign and its subgradient.  The float32 rounding of a relu input is
+    taken as ``margin`` times the distance between its float32 and float64
+    values; an input that is exactly zero in both (an edgeless graph's,
+    with zero biases) is zero in every order."""
+    B = src_T.shape[-1]
+    near = torch.zeros(B, dtype=torch.bool, device=src_T.device)
+    pre32 = _relu_inputs(args, flat, src_T, adj_T, torch.float32)
+    pre64 = _relu_inputs(args, flat, src_T, adj_T, torch.float64)
+    for x32, x64 in zip(pre32, pre64):
+        x32, x64 = x32.double().reshape(-1, B), x64.reshape(-1, B)
+        rounding = margin * (x32 - x64).abs()
+        near |= (torch.minimum(x32.abs(), x64.abs()) < rounding).any(0)
+    return near
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--graphs", type=int, default=76_800)
@@ -73,7 +96,7 @@ def main(argv=None) -> dict:
     flat = nets._flatten_gnn_params(gnn, cfg.embed_layer_n, cfg.gnn_layer_n)
     gen = torch.Generator().manual_seed(a.seed)
     sums = {k: [0.0, 0.0, 0.0, 0.0] for k in ("dsrc", "dadj")}  # err2, ref2, err2 kept, ref2 kept
-    off, worst = [], None
+    off, worst, near = [], None, 0
     for c0 in range(0, a.graphs, a.chunk):
         n = min(a.chunk, a.graphs - c0)
         node, adj, g = _graphs(n, E, cfg.max_edge_dist, gen, dev)
@@ -86,6 +109,7 @@ def main(argv=None) -> dict:
         _, ds32, da32 = gnn_trunk.gnn_trunk_backward_plain(*args, flat, src_T, adj_T, g)
         _, ds64, da64 = gnn_trunk.gnn_trunk_backward_plain(*args, flat, src_T, adj_T, g,
                                                           compute_dtype=torch.float64)
+        near += int(near_zero_graphs(args, flat, src_T, adj_T).sum().item())
         err = (ds32.double() - ds64).abs().amax(0)
         size = ds64.abs().amax(0)
         bad = err > OFF * size
@@ -114,7 +138,8 @@ def main(argv=None) -> dict:
     out = {"graphs": a.graphs, "device": str(dev),
            "rel_l2": {k: (s[0] / s[1]) ** 0.5 for k, s in sums.items()},
            "rel_l2_without_off_graphs": {k: (s[2] / s[3]) ** 0.5 for k, s in sums.items()},
-           "graphs_off": off, "worst_graph_relu_flips": flips}
+           "graphs_off": off, "graphs_near_zero_relu_input": near,
+           "worst_graph_relu_flips": flips}
     print(json.dumps(out), flush=True)
     return out
 

@@ -1,0 +1,109 @@
+"""Checkpoint save and restore (port of the JAX package's
+``utils/checkpoint.py``: ``save_checkpoint``, ``restore_checkpoint``,
+``load_run_config`` and ``_resolve_ckpt_path``, :24-66 and :184-200).
+
+The layout is the JAX package's: ``<save_dir>/ckpt_<episode>/`` holds the
+whole ``TrainState`` (both networks, both Adam states, the value normalizer)
+and the episode, and ``<save_dir>/latest.json`` names the newest.  The state
+is one ``torch.save`` file of tensors and plain Python values, read back
+with ``weights_only=True``.  The run's flags go to ``config.json`` beside
+it (the JAX package writes ``config.yaml``; the port needs no YAML reader).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import torch
+
+from ..learner.mappo import TrainState
+from ..learner.popart import PopArtState
+from ..learner.valuenorm import ValueNormState
+
+STATE_FILE = "train_state.pt"
+_NORMALIZERS = {cls.__name__: cls for cls in (ValueNormState, PopArtState)}
+
+
+def _vn_record(vn) -> dict | None:
+    if vn is None:
+        return None
+    return {"kind": type(vn).__name__,
+            "fields": {f.name: getattr(vn, f.name) for f in dataclasses.fields(vn)}}
+
+
+def _vn_from_record(rec: dict | None, device):
+    if rec is None:
+        return None
+    to_dev = lambda v: v.to(device) if isinstance(v, torch.Tensor) else v
+    return _NORMALIZERS[rec["kind"]](**{k: to_dev(v) for k, v in rec["fields"].items()})
+
+
+def save_checkpoint(save_dir: str, ts: TrainState, episode: int,
+                    config: dict | None = None) -> str:
+    """Write ``ts`` as ``<save_dir>/ckpt_<episode>/train_state.pt``, point
+    ``latest.json`` at it, and write ``config`` (the run's flags) as
+    ``config.json``.  Returns the checkpoint's directory."""
+    path = os.path.abspath(os.path.join(save_dir, f"ckpt_{episode}"))
+    os.makedirs(path, exist_ok=True)
+    state = {
+        "episode": int(episode),
+        "actor": ts.params.actor.state_dict(),
+        "critic": ts.params.critic.state_dict(),
+        "actor_opt": ts.actor_opt.state_dict(),
+        "critic_opt": ts.critic_opt.state_dict(),
+        "vn": _vn_record(ts.vn),
+    }
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(state, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    with open(os.path.join(save_dir, "latest.json"), "w") as f:
+        json.dump({"episode": int(episode), "path": path}, f)
+    if config is not None:
+        with open(os.path.join(save_dir, "config.json"), "w") as f:
+            json.dump(config, f, indent=1, sort_keys=True)
+    return path
+
+
+def restore_checkpoint(save_dir: str, ts_template: TrainState) -> tuple[TrainState, int]:
+    """Load a checkpoint into ``ts_template`` (networks and optimizers in
+    place, the normalizer replaced) and return it with the checkpoint's
+    episode.  ``save_dir`` takes the layouts of ``_resolve_ckpt_path``.
+    Every tensor lands where the running state keeps it: the weights, the
+    Adam moments and the normalizer on the template's device, Adam's step
+    counts on the CPU (``load_state_dict`` places each)."""
+    path = _resolve_ckpt_path(save_dir)
+    device = next(ts_template.params.actor.parameters()).device
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    ts_template.params.actor.load_state_dict(state["actor"])
+    ts_template.params.critic.load_state_dict(state["critic"])
+    ts_template.actor_opt.load_state_dict(state["actor_opt"])
+    ts_template.critic_opt.load_state_dict(state["critic_opt"])
+    ts_template.vn = _vn_from_record(state["vn"], device)
+    return ts_template, state["episode"]
+
+
+def load_run_config(model_dir: str) -> dict:
+    """The run's flags, from ``config.json`` in ``model_dir``."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        return json.load(f)
+
+
+def _resolve_ckpt_path(model_dir: str) -> str:
+    """A run's models directory with ``latest.json`` (its newest
+    checkpoint), a ``ckpt_<N>`` directory, or a directory holding
+    ``ckpt_<N>`` directories (the highest N)."""
+    latest = os.path.join(model_dir, "latest.json")
+    if os.path.exists(latest):
+        with open(latest) as f:
+            return json.load(f)["path"]
+    base = os.path.basename(os.path.normpath(model_dir))
+    if base.startswith("ckpt_"):
+        return os.path.abspath(model_dir)
+    cands = sorted(
+        (d for d in os.listdir(model_dir) if d.startswith("ckpt_")),
+        key=lambda d: int(d.split("_")[1]),
+    )
+    if not cands:
+        raise FileNotFoundError(f"no checkpoint under {model_dir}")
+    return os.path.abspath(os.path.join(model_dir, cands[-1]))

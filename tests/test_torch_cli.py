@@ -1,0 +1,167 @@
+"""The torch port's train entry point (``config/flags.py``,
+``utils/checkpoint.py``, ``utils/logging.py``, ``cli/train.py``) on the CPU.
+
+The flags parse as the JAX package's do and build the same configurations on
+the fields the port carries; settings the port lacks are refused, each
+naming its ROADMAP item; a short run with ``--cuda`` (the reference's
+store_false flag: the CPU) writes the JAX package's run layout, its
+checkpoint restores bit for bit, and ``--model_dir`` restarts at the saved
+episode, as the JAX package's CLI does.
+"""
+import argparse
+import dataclasses
+import json
+import os
+
+import pytest
+import torch
+
+from contracts_marl_aam_corridors_tpu.config import flags as jflags
+
+from contracts_marl_aam_corridors_tpu_torch.cli import train as cli_train
+from contracts_marl_aam_corridors_tpu_torch.config import flags
+from contracts_marl_aam_corridors_tpu_torch.learner import PopArtState, ValueNormState
+from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import (
+    _resolve_ckpt_path,
+    load_run_config,
+    restore_checkpoint,
+)
+
+torch.set_num_threads(1)
+
+FLAGSHIP = ["--num_agents", "3", "--n_rollout_threads", "1024", "--episode_length", "25",
+            "--ppo_epoch", "15", "--num_mini_batch", "1", "--data_chunk_length", "10"]
+ARGVS = {"default": [], "flagship": FLAGSHIP}
+# the port computes in float32 and refuses the JAX default, bfloat16
+FLOAT32 = ["--compute_dtype", "float32"]
+
+
+@pytest.mark.parametrize("name", sorted(ARGVS))
+def test_flags_parse_as_jax(name):
+    argv = ARGVS[name]
+    assert vars(flags.parse_all(argv)) == vars(jflags.parse_all(argv))
+
+
+def _same(a, b) -> bool:
+    if dataclasses.is_dataclass(a):
+        return dataclasses.asdict(a) == dataclasses.asdict(b)
+    return a == b
+
+
+@pytest.mark.parametrize("name", sorted(ARGVS))
+def test_built_configs_match_jax(name):
+    """Field by field on the fields of the port's EnvParams and
+    ModelConfig; both builders set max_edge_dist to the coordination
+    range."""
+    argv = ARGVS[name] + FLOAT32
+    targs, jargs = flags.parse_all(argv), jflags.parse_all(argv)
+    tenv, jenv = flags.build_env_params(targs), jflags.build_env_params(jargs)
+    for f in dataclasses.fields(tenv):
+        assert _same(getattr(tenv, f.name), getattr(jenv, f.name)), f.name
+    assert targs.max_edge_dist == jargs.max_edge_dist == tenv.cfg.coordination_range
+    tcfg, jcfg = flags.build_model_config(targs), jflags.build_model_config(jargs)
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+
+
+REFUSED = {
+    "rot_inv": (["--scenario_name", "nav_graph_metered_single_corridor_rot_inv"], "A5"),
+    "three_phase": (["--scenario_name", "three_phase_graph"], "A5"),
+    "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
+    "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
+                   "A7"),
+    "unicycle": (["--dynamics_type", "unicycle_vehicle"], "A5"),
+    "double_integrator": (["--dynamics_type", "double_integrator"], "A5"),
+    "rk45": (None, "A5"),
+    "obstacles": (["--num_obstacles", "2"], "A5"),
+    "walls": (["--num_walls", "1"], "A5"),
+    "formation": (["--formation_type", "circle"], "A5"),
+    "safety_filter": (["--use_safety_filter", "True"], "A8"),
+    "dense_gnn": (["--gnn_impl", "dense"], "A6"),
+    "edge_packed": (["--gnn_edge_packed", "True"], "A6"),
+    "concat_heads": (["--gnn_concat_heads"], "A6"),
+    "actor_aggr": (["--actor_graph_aggr", "global"], "A6"),
+    "fuse_trunks": (["--fuse_gnn_trunks", "True"], "A11"),
+    "curriculum": (["--use_curriculum", "True"], "A12"),
+    "centralized_v_off": (["--use_centralized_V"], "A12"),
+    "warm_start": (["--warm_start_dir", "model_weights"], "A5"),
+    "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], "A9"),
+    "bfloat16": (["--compute_dtype", "bfloat16"], "A13"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refusals_name_their_roadmap_item(name, tmp_path):
+    argv, item = REFUSED[name]
+    if argv is None:  # no flag selects the integrator; a namespace built in code may
+        args = argparse.Namespace(**vars(flags.parse_all([])), integrator="rk45")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            flags.build_env_params(args)
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        cli_train.main(FLOAT32 + argv + ["--cuda", "--run_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir()), "a refused run writes nothing"
+
+
+SMALL = FLOAT32 + ["--cuda", "--num_agents", "3", "--n_rollout_threads", "8", "--episode_length", "5",
+         "--ppo_epoch", "2", "--log_interval", "1", "--use_eval", "--eval_episodes", "4",
+         "--seed", "3"]
+
+
+def _state_tensors(ts):
+    """Every tensor and number of a TrainState, by name."""
+    out = {}
+    for side in ("actor", "critic"):
+        for k, v in getattr(ts.params, side).state_dict().items():
+            out[f"{side}.{k}"] = v
+        opt = getattr(ts, f"{side}_opt").state_dict()
+        for i, st in opt["state"].items():
+            for k, v in st.items():
+                out[f"{side}_opt.{i}.{k}"] = v
+        for j, g in enumerate(opt["param_groups"]):
+            out[f"{side}_opt.group{j}.lr"] = g["lr"]
+    if ts.vn is not None:
+        for f in dataclasses.fields(ts.vn):
+            out[f"vn.{f.name}"] = getattr(ts.vn, f.name)
+    return out
+
+
+def test_cli_runs_saves_restores_and_resumes_on_cpu(tmp_path):
+    run_dir, ts = cli_train.main(SMALL + ["--num_env_steps", str(2 * 8 * 5),
+                                          "--run_dir", str(tmp_path)])
+    models = os.path.join(run_dir, "models")
+    assert sorted(os.listdir(models)) == ["ckpt_0", "ckpt_1", "config.json", "latest.json"]
+    with open(os.path.join(models, "latest.json")) as f:
+        assert json.load(f)["episode"] == 1
+    assert _resolve_ckpt_path(models).endswith("ckpt_1")
+    assert load_run_config(models)["n_rollout_threads"] == 8
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["step"] for r in records] == [40, 40, 80]  # episode 0, its eval, episode 1
+    assert "value_loss" in records[0] and "eval_success_rate" in records[1]
+    assert all(v == v for r in records for v in r.values())
+
+    # the restore round trip, bit for bit, into a state drawn from another seed
+    args = flags.parse_all(SMALL)
+    _, _, trainer, _ = cli_train.build(args, "cpu")
+    restored, episode = restore_checkpoint(models, trainer.init_state(99))
+    assert episode == 1 and isinstance(restored.vn, (ValueNormState, PopArtState))
+    want, got = _state_tensors(ts), _state_tensors(restored)
+    assert set(got) == set(want) and len(want) > 40
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+
+    # resume: restarts at the saved episode 1, as the JAX CLI does, and goes
+    # on to episode 2
+    run_dir2, ts2 = cli_train.main(SMALL + ["--num_env_steps", str(3 * 8 * 5), "--run_dir",
+                                            str(tmp_path), "--model_dir", models])
+    assert run_dir2 == run_dir
+    with open(os.path.join(models, "latest.json")) as f:
+        assert json.load(f)["episode"] == 2
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    assert steps == [40, 40, 80, 80, 120]
+    assert not torch.equal(ts2.params.actor.action_out.weight, want["actor.action_out.weight"])
