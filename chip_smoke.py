@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the torch port's july rollout, evaluation, PPO training and train
-CLI on one CUDA card.
+"""Drive the torch port's july rollout, evaluation, PPO training, train
+CLI and eval CLI on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the port's kernels (``csrc/gnn_trunk_fwd.cu``, ``gnn_trunk_bwd.cu``,
-``gnn_trunk_dual_fwd.cu`` and ``gnn_trunk_dual_bwd.cu``, one ``nvcc`` each
-for sm_90a, in parallel), holds each against its plain torch version on the
-card, runs ``Runner.collect`` at 4096 envs x 25 steps,
-``Runner.eval_episode`` at 1024 envs, ``Runner.train_episode`` at 1024 envs
-x 25 steps with 15 PPO epochs, both trunks through
-``nets.gnn_transposed_apply_dual`` at the update's shape, and the train CLI
-(``cli.train.main``, three flagship episodes, a checkpoint restore and a
-resume), all at the default model's full width, and checks that every GNN
-trunk forward and backward of those paths went through the kernels.  Prints
-one JSON line per phase (device, build, kernel, backward, dual, rollout,
-eval, train, cli, kernels), then the card's name and power limit as
+``gnn_trunk_dual_fwd.cu``, ``gnn_trunk_dual_bwd.cu`` and
+``gnn_forward_v2.cu``, one ``nvcc`` each for sm_90a, in parallel), holds
+each against its plain torch version on the card (and the v2 forward also
+against the trunk forward kernel), runs ``Runner.collect`` at 4096 envs x
+25 steps, ``Runner.eval_episode`` at 1024 envs, ``Runner.train_episode`` at
+1024 envs x 25 steps with 15 PPO epochs, both trunks through
+``nets.gnn_transposed_apply_dual`` at the update's shape, ``make_gnn_forward_v2``,
+the train CLI (``cli.train.main``, three flagship episodes, a checkpoint
+restore and a resume), the shipped july checkpoint
+(``model_weights_torch/july/unicycle``) under the JAX package's batched
+evaluation, held to its JAX numbers (``jax_eval.json``), and the eval CLI
+(``cli.eval.main``) on it, all at the default model's full width, and
+checks that every GNN trunk forward and backward of those paths went
+through the kernels.  Prints one JSON line per phase (device, build,
+kernel, backward, dual, v2, rollout, eval, train, cli, checkpoint,
+eval_cli, kernels), then the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
 so the script exits non-zero without that line.  Without a CUDA device, or
@@ -24,6 +29,7 @@ result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import re
@@ -83,6 +89,22 @@ LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-6
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the shipped july checkpoint in the port's layout, with the JAX package's
+# evaluation of it (scripts/orbax_to_torch.py), and the protocol of that
+# evaluation (scripts/_eval_common.py run_side): 4 x 256 episodes
+JULY_CKPT = Path("model_weights_torch") / "july" / "unicycle"
+EVAL_SEEDS, EVAL_BATCH = 4, 256
+# The port's means against the JAX package's over those episodes.  The two
+# frameworks draw different resets from the same seeds, so the bar is
+# statistical: at success 0.98 over 3,072 agent-episodes a side's mean has a
+# standard deviation of about 0.0025 (all-agents success 0.95 over 1,024
+# episodes: 0.0068), so a bar of 0.02 (0.04) is some five standard
+# deviations of the difference.  Collisions are printed, not held.
+EVAL_BARS = {"success_rate": 0.02, "all_success_rate": 0.04, "gate_success_rate": 0.02}
+# eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
+JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
+                    "dist_mean", "dist_stddev", "agent_collisions", "conformance",
+                    "spacing_violations"]
 
 
 def emit(obj) -> None:
@@ -190,7 +212,7 @@ def main() -> int:
     from contracts_marl_aam_corridors_tpu_torch.models import (
         GRMAPPOPolicy, ModelConfig, PolicyDims, nets,
     )
-    from contracts_marl_aam_corridors_tpu_torch.ops import gnn_trunk
+    from contracts_marl_aam_corridors_tpu_torch.ops import gnn_trunk, gnn_trunk_v2
     from contracts_marl_aam_corridors_tpu_torch.tools import relu_flips
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -657,6 +679,124 @@ def main() -> int:
           "ptxas": {k: built[k]["ptxas"] for k in ("gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd")},
           "library_ms": None, "library_note": "no PyTorch call computes either trunk"})
 
+    # ---------------------------------------------------------------- v2
+    # the trunk forward in the v2 formulation (make_gnn_forward_v2), held
+    # against its plain version and against the trunk forward kernel (row 1
+    # of the kernel table); nothing routes it, as in the JAX package
+    rtcfg = ModelConfig(max_edge_dist=cfg.max_edge_dist, embed_use_relu=True,
+                        gnn_use_relu=False)
+
+    def as_cfg(gnn, c, node_feat_dim):
+        other = nets.GNNBase(c, node_feat_dim, "node").to(dev)
+        other.load_state_dict(gnn.state_dict())
+        return other
+
+    def v2_flat(gnn, c, E):
+        return gnn_trunk_v2.flatten_gnn_params_v2(gnn.flax_tree(), E, c.gnn_num_heads,
+                                                  c.gnn_hidden_size, c.embed_layer_n,
+                                                  c.gnn_layer_n)
+
+    def v2_vs_row1(gnn, c, nd, ad, tol):
+        """The v2 kernel against the v2 plain version and against row 1's
+        kernel on one input, each at ``tol`` and the float64 criterion."""
+        src_T, adj_T = transposed(gnn, nd, ad)
+        E = nd.shape[1]
+        args = trunk_args(c, E, src_T.shape[0] // E)
+        flat2 = v2_flat(gnn, c, E)
+        got = gnn_trunk_v2.gnn_forward_v2(*args, flat2, src_T, adj_T)
+        want = gnn_trunk_v2.gnn_forward_v2_plain(*args, flat2, src_T, adj_T)
+        exact = gnn_trunk_v2.gnn_forward_v2_plain(*args, flat2, src_T, adj_T,
+                                                  compute_dtype=torch.float64)
+        row1 = gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(), src_T, adj_T)
+        torch.cuda.synchronize()
+        wide = tol is WIDE_TOL
+        f64, f64_ok = forward_vs_f64(got, want, exact, wide)
+        f64_r1, r1_ok = forward_vs_f64(got, row1, exact, wide)
+        ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol) and f64_ok
+              and torch.allclose(got, row1, **tol) and r1_ok)
+        return {"E": E, "B": nd.shape[0], "max_abs_err": (got - want).abs().max().item(),
+                "vs_row1_max_abs_err": (got - row1).abs().max().item(), **tol, **f64,
+                "row1_vs_f64": f64_r1["plain_vs_f64"],
+                "row1_vs_f64_rel_l2": f64_r1["plain_vs_f64_rel_l2"], "ok": ok,
+                **gnn_trunk_v2.v2_config(*args[:6])}
+
+    v2_checks, v2_max_err = [], 0.0
+    with torch.no_grad():
+        relu_tanh_gnn = as_cfg(params.critic.gnn_base, rtcfg, ep.node_feat_dim)
+        wide_relu_tanh = as_cfg(wide_gnn, rtcfg, 8)
+        e10_node, e10_adj = random_graphs(B_roll, 10, cfg.max_edge_dist, gen)
+        env_node, env_adj = rollout_graphs()
+        for name, gnn, c, nd, ad, tol in (
+                ("rollout launch batch, random graphs, relu", params.actor.gnn_base, cfg,
+                 rand_node, rand_adj, KERNEL_TOL),
+                ("rollout launch batch, env reset graphs, relu", params.actor.gnn_base, cfg,
+                 env_node, env_adj, KERNEL_TOL),
+                ("update batch, relu", params.actor.gnn_base, cfg, upd_node, upd_adj,
+                 KERNEL_TOL),
+                ("ragged B, relu/tanh", relu_tanh_gnn, rtcfg, ragged_node, ragged_adj,
+                 KERNEL_TOL),
+                ("edgeless graphs, relu", params.actor.gnn_base, cfg, ragged_node, edgeless,
+                 KERNEL_TOL),
+                ("E=10, relu", wide_gnn, cfg, e10_node, e10_adj, KERNEL_TOL),
+                ("E=20, relu/tanh", wide_relu_tanh, rtcfg, wide_node, wide_adj, WIDE_TOL)):
+            row = {"case": name, **v2_vs_row1(gnn, c, nd, ad, tol)}
+            v2_checks.append(row)
+            torch.cuda.empty_cache()
+            if not row["ok"]:
+                emit({"phase": "v2", "checks": v2_checks})
+                raise AssertionError(f"v2 kernel disagrees with its plain version or with the "
+                                     f"trunk forward kernel: {name}")
+            v2_max_err = max(v2_max_err, row["max_abs_err"])
+
+        # timing at the rollout's launch shape and the update's (E = 6, relu)
+        gnn = params.actor.gnn_base
+        E = ep.num_entities
+        v2_timing = {}
+        for nd, ad in ((rand_node, rand_adj), (upd_node, upd_adj)):
+            src_T, adj_T = transposed(gnn, nd, ad)
+            B = nd.shape[0]
+            args = trunk_args(cfg, E, src_T.shape[0] // E)
+            flat2 = v2_flat(gnn, cfg, E)
+            kp = gnn.kernel_params()
+            out = torch.empty((E * args[3], B), device=dev)
+            reps = 30 if B < B_UPD else 10
+            v2_kernel_ms = time_ms(torch, lambda: gnn_trunk_v2.launch_v2_kernel(
+                *args, flat2, src_T, adj_T, out), reps=reps)
+            v2_row1_ms = time_ms(torch, lambda: gnn_trunk.launch_kernel(
+                *args, kp, src_T, adj_T, out), reps=reps)
+            v2_plain_ms = time_ms(torch, lambda: gnn_trunk_v2.gnn_forward_v2_plain(
+                *args, flat2, src_T, adj_T), reps=5, warmup=1)
+            v2_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
+            n_v2 = sum(t.numel() for t in flat2)
+            v2_w = gnn_trunk_v2.v2_work(*args[:6], B, v2_edges, n_v2)
+            v2_bound, v2_by = bound(v2_w)
+            dense_bound, dense_by = bound({"flops": v2_w["dense_flops"], "bytes": v2_w["bytes"]})
+            v2_timing[B] = {"B": B, "ms": v2_kernel_ms, "row1_ms": v2_row1_ms,
+                            "plain_ms": v2_plain_ms, "bound_ms": v2_bound, "bound_by": v2_by,
+                            "dense_bound_ms": dense_bound, "dense_bound_by": dense_by,
+                            "edges": v2_edges, "v2_param_floats": n_v2, **v2_w}
+
+        # the path: one call through make_gnn_forward_v2, at the rollout's shape
+        src_T, adj_T = transposed(gnn, rand_node, rand_adj)
+        args = trunk_args(cfg, E, src_T.shape[0] // E)
+        fwd_v2 = gnn_trunk_v2.make_gnn_forward_v2(*args)
+        flat2 = v2_flat(gnn, cfg, E)
+        all_counters = counters + (gnn_trunk_v2.gnn_forward_v2,)
+        for f in all_counters:
+            f.launches = 0
+        v2_out = fwd_v2(flat2, src_T, adj_T)
+        torch.cuda.synchronize()
+        v2_path_launches = [f.launches for f in all_counters]
+        if v2_path_launches != [0, 0, 0, 0, 1] or not bool(torch.isfinite(v2_out).all()):
+            raise AssertionError(f"make_gnn_forward_v2 launched (fwd, bwd, dual fwd, dual bwd, "
+                                 f"v2) {v2_path_launches}, expected [0, 0, 0, 0, 1]")
+    v2_ms = v2_timing[B_roll]
+    emit({"phase": "v2", "kernel": "gnn_forward_v2", "checks": v2_checks,
+          "timing": list(v2_timing.values()), "path_launches": v2_path_launches[-1],
+          "zero_blocks": "skipped: the kernel reads only the diagonal blocks of the v2 tuple",
+          "ptxas": built["gnn_forward_v2"]["ptxas"], "library_ms": None,
+          "library_note": "no PyTorch call computes the trunk"})
+
     # ---------------------------------------------------------------- rollout
     runner = Runner(env_params=ep, policy=policy, trainer=rollout_trainer,
                     n_rollout_threads=N_ENVS, episode_length=STEPS)
@@ -985,13 +1125,115 @@ def main() -> int:
                      "latest_episode": latest},
           "saved": saved_files})
 
+    # ---------------------------------------------------------------- checkpoint
+    # the shipped july checkpoint (model_weights/july/unicycle ckpt_1561,
+    # converted by scripts/orbax_to_torch.py) under the JAX package's batched
+    # protocol, held to the JAX package's evaluation of it (jax_eval.json,
+    # made on the CPU with the same flags); its trained trunks through v2
+    # and through the trunk forward kernel
+    from contracts_marl_aam_corridors_tpu_torch.tools.eval_batched import run_side
+    from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import arch_act_flags
+
+    ckpt_dir = ROOT / JULY_CKPT
+    with open(ckpt_dir / "jax_eval.json") as f:
+        jax_ref = json.load(f)
+    act_flags = arch_act_flags(str(ckpt_dir))
+    ck_args = parse_all(jax_ref["argv"])
+    for k, v in act_flags.items():  # the run's activation flags, as the JAX side took them
+        setattr(ck_args, k, v)
+    ck_env, _, ck_trainer, ck_runner = cli_train.build(ck_args)
+    ck_ts, ck_episode = restore_checkpoint(str(ckpt_dir), ck_trainer.init_state(SEED))
+    for f in all_counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    ck_row = run_side(ck_ts, ck_runner, n_eval=EVAL_BATCH, seeds=EVAL_SEEDS)
+    torch.cuda.synchronize()
+    ck_seconds = time.perf_counter() - t0
+    ck_launches = [f.launches for f in all_counters]
+    want = [EVAL_SEEDS * ck_env.episode_length, 0, 0, 0, 0]
+    if ck_launches != want:
+        raise AssertionError(f"the checkpoint's evaluation launched (fwd, bwd, dual fwd, dual "
+                             f"bwd, v2) {ck_launches}, expected {want}")
+    if len(jax_ref["rows"]) != EVAL_SEEDS or jax_ref["rows"][0]["seed"] != 100:
+        raise AssertionError("jax_eval.json holds another protocol")
+    vs_jax = {k: {"port": ck_row[k], "jax": jax_ref["mean"][k],
+                  "diff": ck_row[k] - jax_ref["mean"][k], "bar": EVAL_BARS.get(k)}
+              for k in ("success_rate", "all_success_rate", "gate_success_rate",
+                        "num_agent_collisions")}
+    failed = [k for k, v in vs_jax.items() if v["bar"] is not None and abs(v["diff"]) > v["bar"]]
+
+    # the trained trunks on the graphs of the first eval step (seed 100)
+    ck_trunks = []
+    with torch.no_grad():
+        _, ts0 = env_mod.reset(ck_env, EVAL_BATCH, torch.Generator(device=dev).manual_seed(100),
+                               dev)
+        B, N, E = EVAL_BATCH, ck_env.num_agents, ck_env.num_entities
+        nd = ts0.node_obs.reshape(B * N, E, -1)
+        ad = ts0.adj[:, None].expand(B, N, E, E).reshape(B * N, E, E)
+        for side in ("actor", "critic"):
+            gnn = getattr(ck_ts.params, side).gnn_base
+            c = gnn.cfg
+            src_T, adj_T = transposed(gnn, nd, ad)
+            args = trunk_args(c, E, src_T.shape[0] // E)
+            got = gnn_trunk_v2.gnn_forward_v2(*args, v2_flat(gnn, c, E), src_T, adj_T)
+            row1 = gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(), src_T, adj_T)
+            exact = gnn_trunk.gnn_trunk_forward_plain(
+                *args, nets._flatten_gnn_params(gnn, c.embed_layer_n, c.gnn_layer_n), src_T,
+                adj_T, compute_dtype=torch.float64)
+            torch.cuda.synchronize()
+            f64, f64_ok = forward_vs_f64(got, row1, exact, False)
+            ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, row1, **KERNEL_TOL)
+                  and f64_ok)
+            ck_trunks.append({"trunk": side, "B": B * N, "E": E,
+                              "acts": [c.embed_use_relu, c.gnn_use_relu],
+                              "v2_vs_row1_max_abs_err": (got - row1).abs().max().item(),
+                              "v2_vs_f64": f64["kernel_vs_f64"],
+                              "row1_vs_f64": f64["plain_vs_f64"], **KERNEL_TOL, "ok": ok})
+    emit({"phase": "checkpoint", "checkpoint": str(JULY_CKPT), "episode": ck_episode,
+          "argv": jax_ref["argv"], "act_flags": act_flags,
+          "envs": EVAL_BATCH, "seeds": EVAL_SEEDS, "seconds": ck_seconds, "port": ck_row,
+          "vs_jax": vs_jax, "launches": ck_launches, "trunks": ck_trunks,
+          "jax_versions": jax_ref["versions"]})
+    if failed:
+        raise AssertionError(f"the port's evaluation of the checkpoint misses the bars: {failed}")
+    if not all(t["ok"] for t in ck_trunks):
+        raise AssertionError("the trained trunks differ through v2 and the trunk forward kernel, "
+                             "or v2 lies further from float64")
+
+    # ---------------------------------------------------------------- eval_cli
+    # the eval entry point as a user runs it, on the converted checkpoint
+    from contracts_marl_aam_corridors_tpu_torch.cli import eval as cli_eval
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ev_argv = ["--model_dir", str(ckpt_dir), "--num_agents", str(ck_env.num_agents),
+                   "--episode_length", str(ck_env.episode_length), "--render_episodes", "2",
+                   "--run_dir", tmp]
+        for f in all_counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        ev_rows = cli_eval.main(ev_argv)
+        torch.cuda.synchronize()
+        ev_seconds = time.perf_counter() - t0
+        ev_launches = [f.launches for f in all_counters]
+        with open(Path(tmp) / cli_eval.CSV, newline="") as f:
+            ev_csv = list(csv.DictReader(f))
+    steps = ev_launches[0]
+    if (list(ev_csv[0]) != JAX_EVAL_COLUMNS or len(ev_csv) != 2 or ev_launches[1:] != [0] * 4
+            or not 2 <= steps <= 2 * ck_env.episode_length):
+        raise AssertionError(f"cli.eval wrote columns {list(ev_csv[0])}, {len(ev_csv)} rows, "
+                             f"and launched {ev_launches}")
+    emit({"phase": "eval_cli", "argv": ev_argv[:1] + [str(JULY_CKPT)] + ev_argv[2:-2],
+          "seconds": ev_seconds, "columns": list(ev_csv[0]), "rows": ev_rows,
+          "trunk_launches": steps, "device": torch.cuda.get_device_name(0)})
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
         "source": f"{PACKAGE}/csrc/gnn_trunk_fwd.cu",
         "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:299",
         "launches": episodes[-1]["forward_launches"], "rollout_launches": launches,
-        "eval_launches": eval_launches, "max_abs_err": max_err,
+        "eval_launches": eval_launches, "checkpoint_eval_launches": ck_launches[0],
+        "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }, {
@@ -1015,6 +1257,15 @@ def main() -> int:
         "launches": path_launches[3], "max_abs_err": dual_bwd_err,
         "ms": dual_bwd_ms, "two_single_ms": two_bwd_ms, "plain_ms": plain_dual_bwd_ms,
         "bound_ms": dual_bwd_bound, "bound_by": dual_bwd_by, "library_ms": None,
+    }, {
+        "name": "gnn_forward_v2", "route": "cuda",
+        "source": f"{PACKAGE}/csrc/gnn_forward_v2.cu",
+        "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:72",
+        "launches": v2_path_launches[-1], "checkpoint_eval_launches": ck_launches[-1],
+        "max_abs_err": v2_max_err, "ms": v2_ms["ms"], "row1_ms": v2_ms["row1_ms"],
+        "ms_76800": v2_timing[B_UPD]["ms"], "plain_ms": v2_ms["plain_ms"],
+        "bound_ms": v2_ms["bound_ms"], "bound_by": v2_ms["bound_by"],
+        "dense_bound_ms": v2_ms["dense_bound_ms"], "library_ms": None,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -313,7 +313,7 @@ def build_env_params(args):
         raise not_ported(f"the {scenario} scenario", "A7")
     if scenario != "rotate_tube_july":
         raise not_ported(f"the {scenario} scenario", "A5")
-    if args.dynamics_type != "air_taxi":
+    if args.dynamics_type == "double_integrator":
         raise not_ported(f"--dynamics_type {args.dynamics_type}", "A5")
     # the parser has no integrator flag; a namespace built in code may carry one
     if getattr(args, "integrator", "closed_form") != "closed_form":

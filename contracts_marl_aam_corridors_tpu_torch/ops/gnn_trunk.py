@@ -25,7 +25,8 @@ Both wrappers run the plain version for tensors on the CPU and the kernel
 for tensors on the card; on the card they launch the kernel or raise.  The
 kernels are compiled with ``nvcc`` at first use, each from its source in the
 package (and the headers it includes), into ``build/kernels/`` at the
-repository root.
+repository root; ``build_all`` also builds the v2 formulation's kernel of
+``ops/gnn_trunk_v2.py``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ Tensor = torch.Tensor
 NEG_F32 = float(torch.finfo(torch.float32).min)
 LN_EPS = 1e-5
 
-KERNELS = ("gnn_trunk_fwd", "gnn_trunk_bwd", "gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd")
+KERNELS = ("gnn_trunk_fwd", "gnn_trunk_bwd", "gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd",
+           "gnn_forward_v2")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
@@ -291,36 +293,39 @@ def build_all() -> dict:
         return dict(zip(KERNELS, pool.map(build, KERNELS)))
 
 
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_ip = ctypes.POINTER(_i)
+# argument types of each library's C functions (all return int)
+_SIGNATURES = {
+    "gnn_trunk_fwd": {
+        "gnn_trunk_fwd": [_p, _p, _p, _p, _ll] + [_i] * 7 + [_f, _i, _i, _i, _p],
+        "gnn_trunk_fwd_config": [_i] * 7 + [_ip] * 3,
+    },
+    "gnn_trunk_bwd": {
+        "gnn_trunk_bwd": [_p] * 8 + [_ll] + [_i] * 7 + [_f] + [_i] * 4 + [_p],
+        "gnn_trunk_bwd_config": [_i] * 7 + [_ll] + [_ip] * 4,
+    },
+    "gnn_trunk_dual_fwd": {
+        "gnn_trunk_dual_fwd": [_p] * 7 + [_ll] + [_i] * 7 + [_f, _i, _i, _i, _p],
+        "gnn_trunk_dual_fwd_config": [_i] * 7 + [_ip] * 3,
+    },
+    "gnn_trunk_dual_bwd": {
+        "gnn_trunk_dual_bwd": [_p] * 12 + [_ll] + [_i] * 7 + [_f] + [_i] * 4 + [_p],
+        "gnn_trunk_dual_bwd_config": [_i] * 7 + [_ll] + [_ip] * 4,
+    },
+    "gnn_forward_v2": {
+        "gnn_forward_v2": [_p, _p, _p, _i, _p, _ll] + [_i] * 6 + [_f, _i, _i, _p],
+        "gnn_forward_v2_config": [_i] * 6 + [_ip] * 3,
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(build(name)["library"])
-    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    ip = ctypes.POINTER(i)
-    if name == "gnn_trunk_fwd":
-        lib.gnn_trunk_fwd.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, p]
-        lib.gnn_trunk_fwd.restype = i
-        lib.gnn_trunk_fwd_config.argtypes = [i, i, i, i, i, i, i, ip, ip, ip]
-        lib.gnn_trunk_fwd_config.restype = i
-    elif name == "gnn_trunk_bwd":
-        lib.gnn_trunk_bwd.argtypes = [
-            p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, i, p,
-        ]
-        lib.gnn_trunk_bwd.restype = i
-        lib.gnn_trunk_bwd_config.argtypes = [i, i, i, i, i, i, i, ll, ip, ip, ip, ip]
-        lib.gnn_trunk_bwd_config.restype = i
-    elif name == "gnn_trunk_dual_fwd":
-        lib.gnn_trunk_dual_fwd.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i,
-                                           i, p]
-        lib.gnn_trunk_dual_fwd.restype = i
-        lib.gnn_trunk_dual_fwd_config.argtypes = [i, i, i, i, i, i, i, ip, ip, ip]
-        lib.gnn_trunk_dual_fwd_config.restype = i
-    else:
-        lib.gnn_trunk_dual_bwd.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, f, i, i, i, i, p,
-        ]
-        lib.gnn_trunk_dual_bwd.restype = i
-        lib.gnn_trunk_dual_bwd_config.argtypes = [i, i, i, i, i, i, i, ll, ip, ip, ip, ip]
-        lib.gnn_trunk_dual_bwd_config.restype = i
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _i
     return lib
 
 

@@ -1,6 +1,8 @@
 """Checkpoint save and restore (port of the JAX package's
 ``utils/checkpoint.py``: ``save_checkpoint``, ``restore_checkpoint``,
-``load_run_config`` and ``_resolve_ckpt_path``, :24-66 and :184-200).
+``load_run_config``, ``merge_eval_args``, ``warm_start_arch_flags`` (as
+``arch_act_flags``) and ``_resolve_ckpt_path``, :24-94, :132-160 and
+:184-200).
 
 The layout is the JAX package's: ``<save_dir>/ckpt_<episode>/`` holds the
 whole ``TrainState`` (both networks, both Adam states, the value normalizer)
@@ -22,6 +24,7 @@ from ..learner.popart import PopArtState
 from ..learner.valuenorm import ValueNormState
 
 STATE_FILE = "train_state.pt"
+CONFIG_FILE = "config.json"
 _NORMALIZERS = {cls.__name__: cls for cls in (ValueNormState, PopArtState)}
 
 
@@ -60,7 +63,7 @@ def save_checkpoint(save_dir: str, ts: TrainState, episode: int,
     with open(os.path.join(save_dir, "latest.json"), "w") as f:
         json.dump({"episode": int(episode), "path": path}, f)
     if config is not None:
-        with open(os.path.join(save_dir, "config.json"), "w") as f:
+        with open(os.path.join(save_dir, CONFIG_FILE), "w") as f:
             json.dump(config, f, indent=1, sort_keys=True)
     return path
 
@@ -83,26 +86,97 @@ def restore_checkpoint(save_dir: str, ts_template: TrainState) -> tuple[TrainSta
     return ts_template, state["episode"]
 
 
+def run_config_dir(model_dir: str) -> str | None:
+    """The directory holding the run's ``config.json``: ``model_dir`` or,
+    for a ``ckpt_<N>`` directory, its parent (as the JAX package's eval
+    looks for ``config.yaml``, cli/eval.py:221-227); None where neither
+    has one."""
+    for d in (model_dir, os.path.dirname(os.path.normpath(model_dir))):
+        if os.path.exists(os.path.join(d, CONFIG_FILE)):
+            return d
+    return None
+
+
 def load_run_config(model_dir: str) -> dict:
-    """The run's flags, from ``config.json`` in ``model_dir``."""
-    with open(os.path.join(model_dir, "config.json")) as f:
+    """The run's flags, from ``config.json`` in ``model_dir`` or its
+    parent."""
+    d = run_config_dir(model_dir)
+    if d is None:
+        raise FileNotFoundError(f"no {CONFIG_FILE} in {model_dir} or its parent")
+    with open(os.path.join(d, CONFIG_FILE)) as f:
         return json.load(f)
+
+
+# the flags that choose a trained network's activations
+ARCH_ACT_FLAGS = ("use_ReLU", "embed_use_ReLU", "gnn_use_ReLU")
+
+
+def arch_act_flags(model_dir: str) -> dict:
+    """The activation flags the run's ``config.json`` records, as
+    ``{flag: bool}`` ({} where there is no ``config.json``): the only flags
+    the JAX package's batched comparisons take from a checkpoint's run
+    (``warm_start_arch_flags``, utils/checkpoint.py:135-160, through
+    scripts/_eval_common.py ``build_for``); everything else comes from their
+    command line."""
+    if run_config_dir(model_dir) is None:
+        return {}
+    rec = load_run_config(model_dir)
+    out = {}
+    for k in ARCH_ACT_FLAGS:
+        v = rec.get(k)
+        if v is not None:
+            out[k] = (v.strip().lower() in ("1", "true", "yes", "y", "t")
+                      if isinstance(v, str) else bool(v))
+    return out
+
+
+# the flags an evaluation's command line keeps against the trained run's
+MERGE_EXCLUDE = frozenset({
+    "num_agents", "num_landmarks", "num_obstacles", "episode_length",
+    "model_dir", "use_render", "save_gifs", "render_episodes", "seed",
+    "n_rollout_threads", "n_render_rollout_threads", "use_wandb",
+    "scenario_name", "run_dir", "experiment_name", "eval_episodes",
+})
+
+
+def merge_eval_args(args, run_cfg: dict):
+    """The trained run's flags win over ``args`` except for the env-shape
+    and evaluation flags of ``MERGE_EXCLUDE`` (the JAX package's
+    ``merge_eval_args``, utils/checkpoint.py:68-94; reference eval_mpe.py
+    ``modify_args``:97-151).  Values take the type of the flag they replace;
+    a bool recorded as a string is parsed, not cast.  ``args`` is updated
+    in place and returned."""
+    for k, v in run_cfg.items():
+        if k in MERGE_EXCLUDE or not hasattr(args, k):
+            continue
+        cur = getattr(args, k)
+        try:
+            if isinstance(cur, bool) and isinstance(v, str):
+                setattr(args, k, v.strip().lower() in ("1", "true", "yes", "y", "t"))
+            else:
+                setattr(args, k, type(cur)(v) if cur is not None else v)
+        except (TypeError, ValueError):
+            setattr(args, k, v)
+    return args
 
 
 def _resolve_ckpt_path(model_dir: str) -> str:
     """A run's models directory with ``latest.json`` (its newest
-    checkpoint), a ``ckpt_<N>`` directory, or a directory holding
+    checkpoint; a relative ``path`` there is relative to the directory that
+    holds the file), a ``ckpt_<N>`` directory, or a directory holding
     ``ckpt_<N>`` directories (the highest N)."""
     latest = os.path.join(model_dir, "latest.json")
     if os.path.exists(latest):
         with open(latest) as f:
-            return json.load(f)["path"]
+            return os.path.abspath(os.path.join(model_dir, json.load(f)["path"]))
     base = os.path.basename(os.path.normpath(model_dir))
     if base.startswith("ckpt_"):
         return os.path.abspath(model_dir)
     cands = sorted(
-        (d for d in os.listdir(model_dir) if d.startswith("ckpt_")),
-        key=lambda d: int(d.split("_")[1]),
+        (d for d in os.listdir(model_dir)
+         if d.startswith("ckpt_") and d[5:].isdigit()
+         and os.path.isdir(os.path.join(model_dir, d))),
+        key=lambda d: int(d[5:]),
     )
     if not cands:
         raise FileNotFoundError(f"no checkpoint under {model_dir}")

@@ -1,37 +1,52 @@
-"""The torch port's train entry point (``config/flags.py``,
-``utils/checkpoint.py``, ``utils/logging.py``, ``cli/train.py``) on the CPU.
+"""The torch port's train and eval entry points (``config/flags.py``,
+``utils/checkpoint.py``, ``utils/logging.py``, ``cli/train.py``,
+``cli/eval.py``) on the CPU.
 
 The flags parse as the JAX package's do and build the same configurations on
 the fields the port carries; settings the port lacks are refused, each
 naming its ROADMAP item; a short run with ``--cuda`` (the reference's
 store_false flag: the CPU) writes the JAX package's run layout, its
 checkpoint restores bit for bit, and ``--model_dir`` restarts at the saved
-episode, as the JAX package's CLI does.
+episode, as the JAX package's CLI does.  The eval CLI evaluates the shipped
+july checkpoint (``model_weights_torch/july/unicycle``), merges its run's
+flags as the JAX package's ``merge_eval_args`` does, and writes the JAX
+package's ``eval_stats.csv`` columns.
 """
 import argparse
+import csv
 import dataclasses
 import json
 import os
+import sys
 
 import pytest
 import torch
 
 from contracts_marl_aam_corridors_tpu.config import flags as jflags
+from contracts_marl_aam_corridors_tpu.utils import checkpoint as jcheckpoint
 
+from contracts_marl_aam_corridors_tpu_torch.cli import eval as cli_eval
 from contracts_marl_aam_corridors_tpu_torch.cli import train as cli_train
 from contracts_marl_aam_corridors_tpu_torch.config import flags
 from contracts_marl_aam_corridors_tpu_torch.learner import PopArtState, ValueNormState
+from contracts_marl_aam_corridors_tpu_torch.ops import gnn_trunk
 from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import (
     _resolve_ckpt_path,
     load_run_config,
+    merge_eval_args,
     restore_checkpoint,
 )
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+from july_eval import recipe as july_recipe  # noqa: E402
 
 torch.set_num_threads(1)
 
 FLAGSHIP = ["--num_agents", "3", "--n_rollout_threads", "1024", "--episode_length", "25",
             "--ppo_epoch", "15", "--num_mini_batch", "1", "--data_chunk_length", "10"]
-ARGVS = {"default": [], "flagship": FLAGSHIP}
+# the shipped july checkpoint's recipe: unicycle, world 4, 9 actions
+ARGVS = {"default": [], "flagship": FLAGSHIP, "july_unicycle": july_recipe(150)}
 # the port computes in float32 and refuses the JAX default, bfloat16
 FLOAT32 = ["--compute_dtype", "float32"]
 
@@ -70,7 +85,6 @@ REFUSED = {
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "unicycle": (["--dynamics_type", "unicycle_vehicle"], "A5"),
     "double_integrator": (["--dynamics_type", "double_integrator"], "A5"),
     "rk45": (None, "A5"),
     "obstacles": (["--num_obstacles", "2"], "A5"),
@@ -165,3 +179,88 @@ def test_cli_runs_saves_restores_and_resumes_on_cpu(tmp_path):
         steps = [json.loads(line)["step"] for line in f]
     assert steps == [40, 40, 80, 80, 120]
     assert not torch.equal(ts2.params.actor.action_out.weight, want["actor.action_out.weight"])
+
+
+# the shipped july checkpoint in the port's layout and its JAX original
+JULY = os.path.join(ROOT, "model_weights_torch", "july", "unicycle")
+JULY_ORBAX = os.path.join(ROOT, "model_weights", "july", "unicycle")
+# eval_stats.csv's columns, as the JAX package's cli/eval.py:96-107 names them
+JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
+                    "dist_mean", "dist_stddev", "agent_collisions", "conformance",
+                    "spacing_violations"]
+EVAL_ARGV = ["--model_dir", JULY, "--num_agents", "3"]
+
+
+def test_eval_cli_short_run_writes_jax_columns(tmp_path):
+    gnn_trunk.gnn_trunk_forward.launches = 0
+    rows = cli_eval.main(EVAL_ARGV + ["--episode_length", "10", "--render_episodes", "1",
+                                      "--cuda", "--run_dir", str(tmp_path)])
+    with open(tmp_path / cli_eval.CSV, newline="") as f:
+        written = list(csv.DictReader(f))
+    assert list(written[0]) == JAX_EVAL_COLUMNS and len(written) == len(rows) == 1
+    assert 0.0 <= rows[0]["success_frac"] <= 1.0
+    assert all(v == v for v in rows[0].values())
+    assert gnn_trunk.gnn_trunk_forward.launches == 0  # the CPU runs the plain trunk
+
+
+def test_merge_eval_args_matches_jax():
+    """The trained run's flags over an eval command line, as the JAX package
+    merges its config.yaml: the run's activation flags and recipe win, the
+    command line keeps the env shape, the seed and the run directory."""
+    argv = ["--num_agents", "3", "--episode_length", "150", "--render_episodes", "2",
+            "--seed", "7", "--run_dir", "elsewhere"]
+    got = merge_eval_args(flags.parse_all(argv), load_run_config(JULY))
+    want = jcheckpoint.merge_eval_args(jflags.parse_all(argv),
+                                       jcheckpoint.load_run_config(JULY_ORBAX))
+    assert vars(got) == vars(want)
+    assert (got.use_ReLU, got.embed_use_ReLU, got.gnn_use_ReLU) == (False, True, True)
+    assert (got.dynamics_type, got.world_size, got.seed, got.run_dir) == (
+        "unicycle_vehicle", 4.0, 7, "elsewhere")
+
+
+EVAL_REFUSED = {
+    "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], None, "A9"),
+    "reference_actor_pt": ([], "actor.pt", "A11"),
+    "gifs": (["--use_render", "--save_gifs"], None, "A11"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EVAL_REFUSED))
+def test_eval_refusals_name_their_roadmap_item(name, tmp_path):
+    argv, file, item = EVAL_REFUSED[name]
+    model_dir = tmp_path / "weights"
+    model_dir.mkdir()
+    if file:
+        (model_dir / file).write_bytes(b"")
+    run_dir = tmp_path / "run"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        cli_eval.main(argv + ["--model_dir", str(model_dir), "--cuda", "--run_dir",
+                              str(run_dir)])
+    assert not run_dir.exists(), "a refused evaluation writes nothing"
+
+
+def test_eval_cli_defaults_to_the_card(tmp_path):
+    """Without ``--cuda`` the evaluation asks for the card, though the
+    trained run's config.json records ``cuda: true`` either way."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card; the default device is valid here")
+    assert load_run_config(JULY)["cuda"] is True
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_eval.main(EVAL_ARGV + ["--episode_length", "2", "--render_episodes", "1",
+                                   "--run_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+def test_resolve_ckpt_path_layouts(tmp_path):
+    """latest.json with a path relative to its directory or absolute, one
+    ckpt_<N> directory, or the highest ckpt_<N> directory of a models
+    directory, whatever else lies there."""
+    for n in (2, 10):
+        (tmp_path / f"ckpt_{n}").mkdir()
+    (tmp_path / "ckpt_notes.txt").write_text("")
+    (tmp_path / "ckpt_best").mkdir()
+    assert _resolve_ckpt_path(str(tmp_path)) == str(tmp_path / "ckpt_10")
+    assert _resolve_ckpt_path(str(tmp_path / "ckpt_2")) == str(tmp_path / "ckpt_2")
+    for path in ("ckpt_2", str(tmp_path / "ckpt_2")):
+        (tmp_path / "latest.json").write_text(json.dumps({"episode": 2, "path": path}))
+        assert _resolve_ckpt_path(str(tmp_path)) == str(tmp_path / "ckpt_2")

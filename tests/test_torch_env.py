@@ -40,11 +40,26 @@ TOL = dict(atol=1e-9, rtol=0)
 EP_LEN = 6
 
 
+# the env settings of each vehicle's case: air_taxi at the defaults, the
+# unicycle at the shipped july checkpoint's recipe (scripts/july_eval.py:
+# world 4, collision 30, goal 20, formation 5)
+VEHICLES = {
+    "air_taxi": {},
+    "unicycle_vehicle": dict(world_size=4.0, collision_rew=30.0, goal_rew=20.0,
+                             formation_rew=5.0),
+}
+
+
+def port_params(vehicle="air_taxi"):
+    return EnvParams(cfg=physics.vehicle_config(vehicle), episode_length=EP_LEN,
+                     **VEHICLES[vehicle])
+
+
 @functools.lru_cache(maxsize=None)
-def jax_env():
-    """JAX env params and its jitted batched step (compiled once per file)."""
-    jparams = JEnvParams(cfg=jphysics.vehicle_config("air_taxi"), num_agents=3,
-                         num_landmarks=3, episode_length=EP_LEN)
+def jax_env(vehicle="air_taxi"):
+    """JAX env params and its jitted batched step (compiled once per vehicle)."""
+    jparams = JEnvParams(cfg=jphysics.vehicle_config(vehicle), num_agents=3,
+                         num_landmarks=3, episode_length=EP_LEN, **VEHICLES[vehicle])
     return jparams, jax.jit(jax.vmap(partial(jenv.step, jparams)))
 
 
@@ -120,9 +135,11 @@ def _spawn_rule_holds(params, state, b):
     ws = params.world_size
     ang = float(tb.angle[b])
     assert -np.pi / 2 <= ang <= np.pi / 2
-    np.testing.assert_allclose(float(tb.width[b]), 0.45, **TOL)
+    # width max(3 * 2.5 * agent size 0.06, 0.15 world), entrance a quarter of
+    # the length 0.8 world from the origin (july:518-613)
+    np.testing.assert_allclose(float(tb.width[b]), max(0.45, 0.15 * ws), **TOL)
     np.testing.assert_allclose(
-        tb.entrance[b].numpy(), [np.sin(ang) * 0.4, np.cos(ang) * 0.4], **TOL)
+        tb.entrance[b].numpy(), [np.sin(ang) * 0.2 * ws, np.cos(ang) * 0.2 * ws], **TOL)
     pos = state.agent_states[b, :, :2].numpy()
     perp = np.array([np.sin(ang), np.cos(ang)])
     for k in range(params.num_agents):
@@ -136,9 +153,17 @@ def _spawn_rule_holds(params, state, b):
 
 
 def test_reset_outputs_and_steps_match_jax():
+    check_reset_outputs_and_steps("air_taxi")
+
+
+def test_unicycle_reset_outputs_and_steps_match_jax():
+    check_reset_outputs_and_steps("unicycle_vehicle")
+
+
+def check_reset_outputs_and_steps(vehicle):
     B, steps = 4, 10
-    params = EnvParams(cfg=physics.vehicle_config("air_taxi"), episode_length=EP_LEN)
-    jparams, jstep = jax_env()
+    params = port_params(vehicle)
+    jparams, jstep = jax_env(vehicle)
     keys = jax.random.split(jax.random.PRNGKey(3), B)
     jstate = jax.vmap(partial(jreset.reset, jparams, dtype=jnp.float64))(keys)
 
@@ -195,11 +220,19 @@ def test_reset_outputs_and_steps_match_jax():
 
 
 def test_reward_branches_match_jax():
+    check_reward_branches("air_taxi")
+
+
+def test_unicycle_reward_branches_match_jax():
+    check_reward_branches("unicycle_vehicle")
+
+
+def check_reward_branches(vehicle):
     """One step from hand-placed agents, against the JAX step: the phase-1
     entry bonus, the 1->2 exit, a goal reach (freeze, landmark disconnect,
     reward clip), a demotion and a collision."""
-    jparams, jstep = jax_env()
-    params = EnvParams(cfg=physics.vehicle_config("air_taxi"), episode_length=EP_LEN)
+    jparams, jstep = jax_env(vehicle)
+    params = port_params(vehicle)
     keys = jax.random.split(jax.random.PRNGKey(5), 4)
     jstate = jax.vmap(partial(jreset.reset, jparams, dtype=jnp.float64))(keys)
     f = jax_state_fields(jstate)

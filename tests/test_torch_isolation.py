@@ -36,7 +36,8 @@ print(json.dumps({"names": names, "bad": bad}))
 # modules each slice added, which the probe must have walked
 MODULES = (
     "cli.train", "config.flags", "utils.checkpoint", "utils.logging", "ops.gnn_trunk",
-    "models.nets", "tools.relu_flips", "tools.forward_f64",
+    "models.nets", "tools.relu_flips", "tools.forward_f64", "ops.gnn_trunk_v2", "cli.eval",
+    "tools.eval_batched",
 )
 
 
