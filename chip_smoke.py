@@ -79,7 +79,9 @@ NET_TOL = dict(rtol=2e-4, atol=2e-5)
 # graph or two).  So with relu the graphs where a relu input of either trunk
 # lies within float32 rounding of zero (tools/relu_flips.py
 # near_zero_graphs) are set aside: their cotangent is zeroed, so they add
-# nothing to any leaf, and the other graphs are held at the bar.
+# nothing to any leaf, and the other graphs are held at the bar.  The single
+# backward's relu case also prints the comparison with every graph kept
+# (all_graphs_kept): what the set-aside takes out.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # Card vs CPU update: losses and norms at rtol 1e-4.  The first epoch's
 # policy loss is minus the mean normalized advantage, zero up to rounding, so
@@ -361,30 +363,49 @@ def main() -> int:
                                      c.gnn_layer_n)
         return list(flat) + [dsrc, dadj]
 
-    def set_aside_relu_flips(c, args, trunks, adj_T, gs) -> int:
+    def set_aside_relu_flips(c, args, trunks, adj_T, gs):
         """With relu, zero the cotangents ``gs`` of every graph where a relu
         input of one of the ``trunks`` ((flat params, src) pairs) lies within
-        float32 rounding of zero, and return how many graphs that is; with
-        tanh, 0."""
-        if not (c.embed_use_relu or c.gnn_use_relu):
-            return 0
+        float32 rounding of zero, and return those graphs' mask; with tanh,
+        an empty one."""
         near = torch.zeros(adj_T.shape[-1], dtype=torch.bool, device=adj_T.device)
+        if not (c.embed_use_relu or c.gnn_use_relu):
+            return near
         for flat, src_T in trunks:
             near |= relu_flips.near_zero_graphs(args, flat, src_T, adj_T)
         for g in gs:
             g[:, near] = 0.0
-        return int(near.sum().item())
+        return near
+
+    def all_graphs_kept(c, Ds, args, kp, flat, src_T, adj_T, g, aside):
+        """The single backward held to the plain version with no graph set
+        aside: the largest leaf error over its bar, and the graphs whose dsrc
+        departs from the plain version's by more than 1e-3 of its largest
+        entry, with how many of them ``aside`` holds.  Printed, not held:
+        it shows what the set-aside takes out."""
+        got = grad_leaves(c, Ds, *gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g))
+        dflat, ds, da = gnn_trunk.gnn_trunk_backward_plain(*args, flat, src_T, adj_T, g)
+        want = list(dflat) + [ds, da]
+        ratio = max((k - p).abs().max().item()
+                    / (GRAD_RTOL * p.abs().max().item() + GRAD_ATOL) for k, p in zip(got, want))
+        off = (got[-2] - want[-2]).abs().amax(0) > 1e-3 * want[-2].abs().amax(0)
+        return {"worst_ratio_to_bar": ratio, "graphs_dsrc_off_plain": int(off.sum().item()),
+                "of_them_set_aside": int((off & aside).sum().item())}
 
     bwd_checks, bwd_max_err = [], 0.0
     with torch.no_grad():
         wide_tanh = nets.GNNBase(tcfg, 8, "node")
         wide_tanh.init_(torch.Generator().manual_seed(SEED + 2))
         wide_tanh = wide_tanh.to(dev)
+        # its own generator, so the draws of the other cases stay as they were
+        mid_node, mid_adj = random_graphs(2048, 10, cfg.max_edge_dist,
+                                          torch.Generator(device=dev).manual_seed(SEED + 8))
         bwd_cases = [
             ("update batch, tanh", tanh_gnn, tcfg, upd_node, upd_adj),
             ("update batch, relu", params.actor.gnn_base, cfg, upd_node, upd_adj),
             ("ragged B, tanh", tanh_gnn, tcfg, ragged_node, ragged_adj),
             ("edgeless graphs, tanh", tanh_gnn, tcfg, ragged_node, edgeless),
+            ("E=10, tanh", wide_tanh, tcfg, mid_node, mid_adj),
             ("E=20, tanh", wide_tanh, tcfg, wide_node, wide_adj),
         ]
         for name, gnn, c, nd, ad in bwd_cases:
@@ -396,8 +417,16 @@ def main() -> int:
             kp = gnn.kernel_params()
             flat = gnn_trunk.unpack_blob(kp, Ds, c.gnn_num_heads, c.gnn_hidden_size,
                                          c.embed_layer_n, c.gnn_layer_n)
+            g_all = g.clone()
             aside = set_aside_relu_flips(c, args, [(flat, src_T)], adj_T, [g])
-            got = grad_leaves(c, Ds, *gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g))
+            kept = (all_graphs_kept(c, Ds, args, kp, flat, src_T, adj_T, g_all, aside)
+                    if aside.any() else None)
+            del g_all
+            first = gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g)
+            # a second launch on the same inputs: the sums run in a fixed order
+            identical = all(torch.equal(a, b) for a, b in zip(
+                first, gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g)))
+            got = grad_leaves(c, Ds, *first)
             dflat, ds, da = gnn_trunk.gnn_trunk_backward_plain(*args, flat, src_T, adj_T, g)
             want = list(dflat) + [ds, da]
             dflat, ds, da = gnn_trunk.gnn_trunk_backward_plain(
@@ -417,17 +446,23 @@ def main() -> int:
                 "plain_dsrc_rel_l2_other_graphs": ((want[-2].double() - exact[-2])[:, keep].norm()
                                                    / exact[-2][:, keep].norm()).item()
                 if keep.any() else None}
-            ok = finite and all(r["ok"] for r in rows)
             err = max(r["max_abs_err"] for r in rows)
             conf = gnn_trunk.backward_config(E, Ds, args[2], c.embed_hidden_size, args[3],
                                              c.embed_layer_n, c.gnn_layer_n, B)
+            conf.update(gnn_trunk.backward_attributes(E, Ds, args[2], c.embed_hidden_size,
+                                                      args[3], c.embed_layer_n, c.gnn_layer_n))
+            # the grid's CTAs all fit on the card at once
+            ok = (finite and identical and all(r["ok"] for r in rows)
+                  and conf["ctas_per_sm"] >= conf["planned_ctas_per_sm"])
             worst = max(rows, key=lambda r: r["max_abs_err"] / r["bar"])
             bwd_checks.append({"case": name, "E": E, "B": B, "max_abs_err": err, "finite": finite,
-                               "ok": ok, "relu_graphs_set_aside": aside,
+                               "two_launches_identical": identical,
+                               "ok": ok, "relu_graphs_set_aside": int(aside.sum().item()),
+                               "all_graphs_kept": kept,
                                "graphs_off_f64": graphs_off_f64,
                                "worst_leaf": rows.index(worst), **worst, **conf,
                                "leaves": rows if not ok else len(rows)})
-            del got, want, exact, dflat, ds, da
+            del first, got, want, exact, dflat, ds, da
             torch.cuda.empty_cache()
             if not ok:
                 emit({"phase": "backward", "checks": bwd_checks})
@@ -560,21 +595,33 @@ def main() -> int:
             torch.cuda.synchronize()
             finite = all(bool(torch.isfinite(t).all()) for t in got)
             rows = compare_leaves(got, want, exact)
-            ok = finite and all(r["ok"] for r in rows)
             err = max(r["max_abs_err"] for r in rows)
             worst = max(rows, key=lambda r: r["max_abs_err"] / r["bar"])
+            # the dual runs each trunk's backward as a single launch does:
+            # parameter gradients and dsrc bit for bit, the summed distance
+            # gradient (actor's and critic's added in another order) at the bar
+            two = sa1[2] + sc1[2]
             vs_single = {
                 "dparams": max((dba - sa1[0]).abs().max().item(), (dbc - sc1[0]).abs().max().item()),
                 "dsrc": max((dsa - sa1[1]).abs().max().item(), (dsc - sc1[1]).abs().max().item()),
-                "dadj": (dadj - (sa1[2] + sc1[2])).abs().max().item()}
+                "dadj": (dadj - two).abs().max().item(),
+                "dadj_bar": GRAD_RTOL * two.abs().max().item() + GRAD_ATOL}
+            vs_single_ok = (vs_single["dparams"] == 0.0 and vs_single["dsrc"] == 0.0
+                            and vs_single["dadj"] <= vs_single["dadj_bar"])
+            attrs = gnn_trunk.backward_attributes(E, Ds, args[2], kp_a.F1, args[3],
+                                                  c.embed_layer_n, c.gnn_layer_n, dual=True)
+            ok = (finite and vs_single_ok and all(r["ok"] for r in rows)
+                  and attrs["ctas_per_sm"] >= attrs["planned_ctas_per_sm"])
             dual_bwd_checks.append({
                 "case": name, "E": E, "B": B, "max_abs_err": err, "finite": finite, "ok": ok,
-                "relu_graphs_set_aside": aside, "worst_leaf": rows.index(worst), **worst,
+                "relu_graphs_set_aside": int(aside.sum().item()), "worst_leaf": rows.index(worst),
+                **worst,
                 "vs_two_single_launches_max_abs": vs_single,
+                "vs_two_single_launches_ok": vs_single_ok,
                 **gnn_trunk.dual_backward_config(E, Ds, args[2], kp_a.F1, args[3],
                                                  c.embed_layer_n, c.gnn_layer_n, B),
-                "leaves": rows if not ok else len(rows)})
-            del got, want, exact, sa1, sc1
+                **attrs, "leaves": rows if not ok else len(rows)})
+            del got, want, exact, sa1, sc1, two
             torch.cuda.empty_cache()
             if not ok:
                 emit({"phase": "dual", "forward_checks": dual_fwd_checks,

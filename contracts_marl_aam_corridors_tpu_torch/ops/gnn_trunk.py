@@ -206,6 +206,149 @@ def gnn_trunk_backward_plain(
     return tuple(grads[:-2]), grads[-2], grads[-1]
 
 
+def gnn_trunk_backward_layerwise_plain(
+    E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
+    params_flat, src_aug_T, adj_T, g, compute_dtype=torch.float32,
+) -> tuple[tuple, Tensor, Tensor]:
+    """The vjp of :func:`gnn_trunk_forward_plain`, as
+    :func:`gnn_trunk_backward_plain` returns it, written out by hand in the
+    backward kernel's order of work (``csrc/gnn_trunk_bwd.cuh``) over the
+    whole batch: a CPU rehearsal of the kernel's arithmetic.
+
+    The forward keeps only the conv layers' inputs x_0 .. x_{n-1} and turns
+    the last layer's output into its pre-activation gradient.  Each conv
+    layer's backward, last layer first, recomputes its q/k/v and attention
+    weights head by head from x_l and runs the softmax backward with the
+    any-edge factor, the distance terms and the q/k/v products.  The
+    EmbedConv backward recomputes each edge's chain from its input, stage by
+    stage, and runs the LayerNorm and Linear backwards per edge.
+    """
+    embed_relu, gnn_relu = _relu_flags(use_relu)
+    embed_act, gnn_act = _act(embed_relu), _act(gnn_relu)
+    cdt = compute_dtype
+    (W1, b1, w_e1, ln1_s, ln1_b), embed_layers, tc_params = _split_flat(
+        [p.to(cdt) for p in params_flat], embed_layer_n, gnn_layer_n)
+    lns = [(ln1_s, ln1_b)] + [(s, b) for _, _, s, b in embed_layers]
+    inv_sqrt_c, inv_h = float(1.0 / (C ** 0.5)), 1.0 / H
+    B = src_aug_T.shape[-1]
+    src = src_aug_T.to(cdt).reshape(E, Ds, B)
+    d32 = adj_T.to(torch.float32).reshape(E, E, B)  # [s, t, b]
+    m = ((d32 > 0.0) & (d32 < max_edge_dist)).to(cdt)
+    dm = d32.to(cdt) * m
+    any_edge = m.amax(dim=0)  # (T, B)
+
+    def grad_from_out(y, relu):  # the activation's derivative, from its output
+        return (y > 0).to(y.dtype) if relu else 1.0 - y * y
+
+    def ln_stats(a):  # over the feature axis (-2)
+        mu = a.mean(dim=-2, keepdim=True)
+        d = a - mu
+        return mu, torch.rsqrt((d * d).mean(dim=-2, keepdim=True) + LN_EPS)
+
+    h_src = torch.einsum("fk,skb->sfb", W1, src) + b1  # (S, F1, B)
+
+    def chain(l):
+        """Every edge's stage-l activation output and stage-l Linear input
+        (stage l-1's LayerNorm output; None for l = 0), (S, T, F1, B)."""
+        a = embed_act(h_src[:, None] + dm[:, :, None, :] * w_e1)
+        yp = None
+        for j in range(1, l + 1):
+            mu, r = ln_stats(a)
+            yp = (a - mu) * r * lns[j - 1][0] + lns[j - 1][1]
+            Wj, bj = embed_layers[j - 1][:2]
+            a = embed_act(torch.einsum("gf,stfb->stgb", Wj, yp) + bj)
+        return a, yp
+
+    def heads(Wqkv, bqkv, w_e, x, h):
+        """Head h's q, k, v (E, C, B), its w_e column (C, 1) and attention
+        weights (S, T, B), the any-edge factor applied."""
+        HC = H * C
+        rows = [slice(o + h * C, o + (h + 1) * C) for o in (0, HC, 2 * HC)]
+        q, k, v = (torch.einsum("jk,ekb->ejb", Wqkv[r], x) + bqkv[r] for r in rows)
+        we = w_e[h * C:(h + 1) * C]
+        qwe = (q * we).sum(dim=1)  # (T, B)
+        logits = ((q[None] * k[:, None]).sum(dim=2) + dm * qwe[None]) * inv_sqrt_c
+        logits = torch.where(m > 0, logits, NEG_F32)
+        ex = torch.exp(logits - logits.amax(dim=0, keepdim=True))
+        return q, k, v, we, qwe, ex / ex.sum(dim=0, keepdim=True) * any_edge, rows
+
+    # the forward, keeping the conv layers' inputs
+    a, _ = chain(embed_layer_n)
+    mu, r = ln_stats(a)
+    x = (m[:, :, None, :] * ((a - mu) * r * lns[-1][0] + lns[-1][1])).sum(dim=0)  # (T, F1, B)
+    xs = []
+    for Wqkv, bqkv, w_e, Wskip, bskip in tc_params:
+        xs.append(x)
+        acc = torch.einsum("ck,tkb->tcb", Wskip, x)
+        for h in range(H):
+            q, k, v, we, qwe, alpha, _ = heads(Wqkv, bqkv, w_e, x, h)
+            o = (alpha[:, :, None, :] * v[:, None]).sum(dim=0) + (alpha * dm).sum(dim=0)[:, None] * we
+            acc = acc + o * inv_h
+        x = gnn_act(acc + bskip)
+    # the output leaves the trunk in float32, and so does its cotangent
+    dpre = g.to(torch.float32).to(cdt).reshape(E, C, B) * grad_from_out(x, gnn_relu)
+
+    # the conv layers' backward, last layer first
+    dadj = torch.zeros_like(dm)
+    dtcs = []
+    for l in range(len(tc_params) - 1, -1, -1):
+        Wqkv, bqkv, w_e, Wskip, bskip = tc_params[l]
+        X = xs[l]
+        if l < len(tc_params) - 1:
+            dpre = dx * grad_from_out(xs[l + 1], gnn_relu)
+        dx = torch.einsum("ck,tcb->tkb", Wskip, dpre)
+        dWqkv, dbqkv, dwe = (torch.zeros_like(t) for t in (Wqkv, bqkv, w_e))
+        for h in range(H):
+            q, k, v, we, qwe, alpha, rows = heads(Wqkv, bqkv, w_e, X, h)
+            dpwe = (dpre * we).sum(dim=1) * inv_h  # (T, B)
+            da = (dpre[None] * v[:, None]).sum(dim=2) * inv_h + dm * dpwe[None]  # (S, T, B)
+            u = alpha * (da - (alpha * da).sum(dim=0, keepdim=True)) * inv_sqrt_c * m
+            ad, w = (alpha * dm).sum(dim=0), (u * dm).sum(dim=0)  # (T, B)
+            dadj = dadj + u * qwe[None] + alpha * dpwe[None]
+            dq = torch.einsum("stb,scb->tcb", u, k) + w[:, None] * we
+            dk = torch.einsum("stb,tcb->scb", u, q)
+            dv = torch.einsum("stb,tcb->scb", alpha, dpre) * inv_h
+            dwe[h * C:(h + 1) * C] = (ad[:, None] * inv_h * dpre + w[:, None] * q).sum(
+                dim=(0, 2))[:, None]
+            for rr, dd in zip(rows, (dq, dk, dv)):
+                dx = dx + torch.einsum("jk,ejb->ekb", Wqkv[rr], dd)
+                dWqkv[rr] = torch.einsum("ejb,ekb->jk", dd, X)
+                dbqkv[rr] = dd.sum(dim=(0, 2))[:, None]
+        dWskip = torch.einsum("tcb,tkb->ck", dpre, X)
+        dtcs.append([dWqkv, dbqkv, dwe, dWskip, dpre.sum(dim=(0, 2))[:, None]])
+
+    # the EmbedConv backward, per edge, stage by stage from the last
+    dembed = [None] * embed_layer_n
+    dlns = [None] * (embed_layer_n + 1)
+    dy = m[:, :, None, :] * dx[None]  # (S, T, F1, B)
+    for l in range(embed_layer_n, -1, -1):
+        a, yp = chain(l)
+        mu, r = ln_stats(a)
+        xh = (a - mu) * r
+        dlns[l] = [(dy * xh).sum(dim=(0, 1, 3))[:, None], dy.sum(dim=(0, 1, 3))[:, None]]
+        dxh = dy * lns[l][0]
+        dz = r * (dxh - dxh.mean(dim=2, keepdim=True)
+                  - xh * (dxh * xh).mean(dim=2, keepdim=True)) * grad_from_out(a, embed_relu)
+        if l >= 1:
+            Wl = embed_layers[l - 1][0]
+            dembed[l - 1] = [torch.einsum("stgb,stfb->gf", dz, yp),
+                             dz.sum(dim=(0, 1, 3))[:, None]]
+            dy = torch.einsum("gf,stgb->stfb", Wl, dz)
+    dwe1 = (dz * dm[:, :, None, :]).sum(dim=(0, 1, 3))[:, None]
+    dadj = dadj + (dz * w_e1).sum(dim=2)
+    dhsrc = dz.sum(dim=1)  # (S, F1, B)
+    dsrc = torch.einsum("fk,sfb->skb", W1, dhsrc).reshape(E * Ds, B)
+    dflat = [torch.einsum("sfb,skb->fk", dhsrc, src), dhsrc.sum(dim=(0, 2))[:, None], dwe1]
+    dflat += dlns[0]
+    for (dW, db), (dls, dlb) in zip(dembed, dlns[1:]):
+        dflat += [dW, db, dls, dlb]
+    for d in reversed(dtcs):
+        dflat += d
+    # the distances reach the trunk through a float32 cast, as in the forward
+    dadj = (m * dadj).to(torch.float32).to(cdt).reshape(E * E, B)
+    return tuple(dflat), dsrc, dadj
+
+
 def gnn_trunk_dual_forward_plain(
     E, Ds, H, C, embed_layer_n, gnn_layer_n, max_edge_dist, use_relu,
     params_a, params_c, src_a_T, src_c_T, adj_T, compute_dtype=torch.float32,
@@ -304,6 +447,7 @@ _SIGNATURES = {
     "gnn_trunk_bwd": {
         "gnn_trunk_bwd": [_p] * 8 + [_ll] + [_i] * 7 + [_f] + [_i] * 4 + [_p],
         "gnn_trunk_bwd_config": [_i] * 7 + [_ll] + [_ip] * 4,
+        "gnn_trunk_bwd_attributes": [_i] * 7 + [_ip] * 5,
     },
     "gnn_trunk_dual_fwd": {
         "gnn_trunk_dual_fwd": [_p] * 7 + [_ll] + [_i] * 7 + [_f, _i, _i, _i, _p],
@@ -312,6 +456,7 @@ _SIGNATURES = {
     "gnn_trunk_dual_bwd": {
         "gnn_trunk_dual_bwd": [_p] * 12 + [_ll] + [_i] * 7 + [_f] + [_i] * 4 + [_p],
         "gnn_trunk_dual_bwd_config": [_i] * 7 + [_ll] + [_ip] * 4,
+        "gnn_trunk_dual_bwd_attributes": [_i] * 7 + [_ip] * 5,
     },
     "gnn_forward_v2": {
         "gnn_forward_v2": [_p, _p, _p, _i, _p, _ll] + [_i] * 6 + [_f, _i, _i, _p],
@@ -392,6 +537,20 @@ def dual_backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict
         ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar), ctypes.byref(grid)))
     return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value,
             "ctas": grid.value}
+
+
+def backward_attributes(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, dual=False) -> dict:
+    """What the compiler and the card make of the backward kernel (``dual``:
+    the dual backward) at these dimensions: threads a CTA, registers and
+    local memory bytes a thread, the CTAs an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the CTAs an SM
+    its launch plans for (by shared memory, threads and registers)."""
+    name = "gnn_trunk_dual_bwd" if dual else "gnn_trunk_bwd"
+    out = [ctypes.c_int() for _ in range(5)]
+    _check_rc(name, getattr(_library(name), f"{name}_attributes")(
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, *(ctypes.byref(o) for o in out)))
+    keys = ("threads", "registers", "local_bytes", "ctas_per_sm", "planned_ctas_per_sm")
+    return dict(zip(keys, (o.value for o in out)))
 
 
 class KernelParams(NamedTuple):
