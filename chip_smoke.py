@@ -121,14 +121,24 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=30, warmup=3) -> float:
-    """Median over ``reps`` of one call's device time, from CUDA events."""
+# Cycles of torch.cuda._sleep (about 1 ms on the H100) that keep the card
+# busy while the host submits a timed kernel launch.
+BUSY_CYCLES = 2_000_000
+
+
+def time_ms(torch, fn, reps=30, warmup=3, hide_host=False) -> float:
+    """Median over ``reps`` of one call's time, from CUDA events: with
+    ``hide_host`` the device's alone (the card is kept busy while the host
+    submits the call, as it is when launches queue up), else the call's on
+    an idle card, the host's submission included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(reps):
+        if hide_host:
+            torch.cuda._sleep(BUSY_CYCLES)
         start.record()
         fn()
         end.record()
@@ -303,26 +313,57 @@ def main() -> int:
         upd_node, upd_adj = random_graphs(B_UPD, ep.num_entities, cfg.max_edge_dist, gen)
         cases.append(("update batch, relu", params.actor.gnn_base, cfg, upd_node, upd_adj,
                       KERNEL_TOL))
+        # its own generator, so the draws of the other cases stay as they were
+        e10k_node, e10k_adj = random_graphs(4096, 10, cfg.max_edge_dist,
+                                            torch.Generator(device=dev).manual_seed(SEED + 9))
+        cases.append(("E=10, relu", wide_gnn, cfg, e10k_node, e10k_adj, KERNEL_TOL))
+
+        def forward_plan(c, E, Ds, B):
+            """The forward kernel's plan for B graphs and what the card makes
+            of it (threads, registers, local memory, CTAs an SM)."""
+            dims = (E, Ds, c.gnn_num_heads, c.embed_hidden_size, c.gnn_hidden_size,
+                    c.embed_layer_n, c.gnn_layer_n, B)
+            return {**gnn_trunk.kernel_config(*dims), **gnn_trunk.forward_attributes(*dims)}
 
         checks, max_err = [], 0.0
         for name, gnn, c, nd, ad, tol in cases:
             src_T, adj_T = transposed(gnn, nd, ad)
-            E = nd.shape[1]
+            E, B = nd.shape[1], nd.shape[0]
             args = trunk_args(c, E, src_T.shape[0] // E)
             flat = nets._flatten_gnn_params(gnn, c.embed_layer_n, c.gnn_layer_n)
             got = gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(), src_T, adj_T)
+            # a second launch on the same inputs gives the same bits
+            identical = torch.equal(
+                got, gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(), src_T, adj_T))
             want = gnn_trunk.gnn_trunk_forward_plain(*args, flat, src_T, adj_T)
             exact = gnn_trunk.gnn_trunk_forward_plain(*args, flat, src_T, adj_T,
                                                       compute_dtype=torch.float64)
+            prefix = None
+            if B == B_UPD:
+                # no graph's result depends on its tile or on the threads a
+                # row is split over: the first 768, 1,536 and 3,072 graphs
+                # alone (small tiles, rows split over 8, 4 and 2 threads)
+                # equal them inside the full launch (the full plan), bit for
+                # bit
+                prefix = []
+                for n in (768, 1536, 3072):
+                    pre = gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(),
+                                                      src_T[:, :n].contiguous(),
+                                                      adj_T[:, :n].contiguous())
+                    plan = forward_plan(c, E, args[1], n)
+                    prefix.append({"graphs": n, "equal": torch.equal(pre, got[:, :n]),
+                                   "graphs_per_cta": plan["graphs_per_cta"],
+                                   "threads_per_row": plan["threads_per_row"]})
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             f64, f64_ok = forward_vs_f64(got, want, exact, tol is WIDE_TOL)
+            conf = forward_plan(c, E, args[1], B)
             ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
-                  and f64_ok)
-            conf = gnn_trunk.kernel_config(E, args[1], args[2], c.embed_hidden_size, args[3],
-                                           c.embed_layer_n, c.gnn_layer_n)
-            checks.append({"case": name, "E": E, "B": nd.shape[0], "max_abs_err": err,
-                           **tol, **f64, "ok": ok, **conf})
+                  and f64_ok and identical and all(r["equal"] for r in prefix or ())
+                  and conf["ctas_per_sm"] >= conf["planned_ctas_per_sm"])
+            checks.append({"case": name, "E": E, "B": B, "max_abs_err": err,
+                           **tol, **f64, "two_launches_identical": identical,
+                           "prefix_alone": prefix, "ok": ok, **conf})
             if not ok:
                 emit({"phase": "kernel", "checks": checks})
                 raise AssertionError(f"kernel disagrees with the plain version: {name}")
@@ -340,7 +381,7 @@ def main() -> int:
             raise AssertionError("GNNBase.kernel_params differs from param_blob of the flat params")
         out = torch.empty((E * cfg.gnn_hidden_size, src_T.shape[1]), device=dev)
         kernel_ms = time_ms(torch, lambda: gnn_trunk.launch_kernel(
-            *args, kp, src_T, adj_T, out))
+            *args, kp, src_T, adj_T, out), hide_host=True)
         # the wrapper as the model calls it: checks, output allocation, launch
         wrapper_ms = time_ms(torch, lambda: gnn_trunk.gnn_trunk_forward(
             *args, gnn.kernel_params(), src_T, adj_T))
@@ -349,12 +390,44 @@ def main() -> int:
         n_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
         work = gnn_trunk.trunk_work(E, args[1], args[2], kp.F1, args[3], cfg.embed_layer_n,
                                     cfg.gnn_layer_n, src_T.shape[1], n_edges, kp.blob.numel())
+
+        # the launch sizes of the paths: the checkpoint evaluation's 768
+        # graphs (256 envs x 3 agents), the eval phase's 3,072, the
+        # rollout's 12,288 and the update's 76,800, each with its plan
+        sizes = []
+        for nd, ad in ((upd_node[:768], upd_adj[:768]), (upd_node[:3072], upd_adj[:3072]),
+                       (node, adj), (upd_node, upd_adj)):
+            s_T, a_T = transposed(gnn, nd, ad)
+            B = nd.shape[0]
+            o = torch.empty((E * cfg.gnn_hidden_size, B), device=dev)
+            reps = 30 if B < B_UPD else 10
+
+            def launch(s_T=s_T, a_T=a_T, o=o):
+                gnn_trunk.launch_kernel(*args, kp, s_T, a_T, o)
+
+            # the device's time, and a call's on an idle card (the host's
+            # submission included, as in the evaluation's serial launches)
+            ms = time_ms(torch, launch, reps=reps, hide_host=True)
+            call_ms = time_ms(torch, launch, reps=reps)
+            p_ms = time_ms(torch, lambda: gnn_trunk.gnn_trunk_forward_plain(
+                *args, flat, s_T, a_T), reps=5, warmup=1)
+            edges = int(((a_T > 0) & (a_T < cfg.max_edge_dist)).sum().item())
+            w = gnn_trunk.trunk_work(E, args[1], args[2], kp.F1, args[3], cfg.embed_layer_n,
+                                     cfg.gnn_layer_n, B, edges, kp.blob.numel())
+            b_ms, b_by = bound(w)
+            sizes.append({"B": B, "ms": ms, "call_ms": call_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "edges": edges, **w,
+                          **forward_plan(cfg, E, args[1], B)})
     bound_ms, bound_by = bound(work)
     timing = {"B": src_T.shape[1], "E": E, "ms": kernel_ms, "wrapper_ms": wrapper_ms,
               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
               "flops": work["flops"], "bytes": work["bytes"], "edges": n_edges,
               "library_ms": None}
-    emit({"phase": "kernel", "kernel": "gnn_trunk_fwd", "checks": checks, **timing})
+    fwd_plans_ok = all(r["ctas_per_sm"] >= r["planned_ctas_per_sm"] for r in sizes)
+    emit({"phase": "kernel", "kernel": "gnn_trunk_fwd", "checks": checks, **timing,
+          "sizes": sizes, "ptxas": built["gnn_trunk_fwd"]["ptxas"]})
+    if not fwd_plans_ok:
+        raise AssertionError("the forward kernel's plan counts more CTAs an SM than the card holds")
 
     # ---------------------------------------------------------------- backward
     def grad_leaves(c, Ds, dblob, dsrc, dadj):
@@ -481,9 +554,10 @@ def main() -> int:
         dsrc, dadj, dblob = torch.empty_like(src_T), torch.empty_like(adj_T), torch.empty_like(kp.blob)
         partial = torch.empty((conf["ctas"], kp.blob.numel()), device=dev)
         bwd_ms = time_ms(torch, lambda: gnn_trunk.launch_backward_kernel(
-            *args, kp, src_T, adj_T, g, dsrc, dadj, dblob, partial), reps=10)
+            *args, kp, src_T, adj_T, g, dsrc, dadj, dblob, partial), reps=10, hide_host=True)
         upd_fwd_ms = time_ms(torch, lambda: gnn_trunk.launch_kernel(
-            *args, kp, src_T, adj_T, torch.empty((E * args[3], B_UPD), device=dev)), reps=10)
+            *args, kp, src_T, adj_T, torch.empty((E * args[3], B_UPD), device=dev)), reps=10,
+            hide_host=True)
 
         def fwd_bwd():
             with torch.enable_grad():
@@ -637,10 +711,10 @@ def main() -> int:
         args, kp_a, kp_c, fa, fc = dual_args(cfg, E, Ds, actor_gnn, critic_gnn)
         out_a, out_c = (torch.empty((E * args[3], B_UPD), device=dev) for _ in range(2))
         dual_fwd_ms = time_ms(torch, lambda: gnn_trunk.launch_dual_kernel(
-            *args, kp_a, kp_c, src_a, src_c, adj_T, out_a, out_c), reps=10)
+            *args, kp_a, kp_c, src_a, src_c, adj_T, out_a, out_c), reps=10, hide_host=True)
         two_fwd_ms = time_ms(torch, lambda: (
             gnn_trunk.launch_kernel(*args, kp_a, src_a, adj_T, out_a),
-            gnn_trunk.launch_kernel(*args, kp_c, src_c, adj_T, out_c)), reps=10)
+            gnn_trunk.launch_kernel(*args, kp_c, src_c, adj_T, out_c)), reps=10, hide_host=True)
         plain_dual_fwd_ms = time_ms(torch, lambda: gnn_trunk.gnn_trunk_dual_forward_plain(
             *args, fa, fc, src_a, src_c, adj_T), reps=5, warmup=1)
         g_a, g_c = (torch.randn((E * args[3], B_UPD), generator=gen, device=dev)
@@ -653,7 +727,7 @@ def main() -> int:
         dpartial = torch.empty((dconf["ctas"], 2 * n), device=dev)
         dual_bwd_ms = time_ms(torch, lambda: gnn_trunk.launch_dual_backward_kernel(
             *args, kp_a, kp_c, src_a, src_c, adj_T, g_a, g_c, dsa, dsc, dadj, dblobs, dpartial),
-            reps=10)
+            reps=10, hide_host=True)
         spartial = torch.empty((gnn_trunk.backward_config(
             E, Ds, args[2], kp_a.F1, args[3], cfg.embed_layer_n, cfg.gnn_layer_n,
             B_UPD)["ctas"], n), device=dev)
@@ -661,7 +735,7 @@ def main() -> int:
             gnn_trunk.launch_backward_kernel(*args, kp_a, src_a, adj_T, g_a, dsa, dadj,
                                              dblobs[:n], spartial),
             gnn_trunk.launch_backward_kernel(*args, kp_c, src_c, adj_T, g_c, dsc, dadj,
-                                             dblobs[n:], spartial)), reps=10)
+                                             dblobs[n:], spartial)), reps=10, hide_host=True)
         plain_dual_bwd_ms = time_ms(torch, lambda: gnn_trunk.gnn_trunk_dual_backward_plain(
             *args, fa, fc, src_a, src_c, adj_T, g_a, g_c), reps=5, warmup=1)
         upd_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
@@ -705,7 +779,7 @@ def main() -> int:
     profiled = {"gnn_trunk_fwd_kernel<2>": count(r"gnn_trunk_fwd_kernel(<2\b|ILi2E)"),
                 "gnn_trunk_dual_bwd_kernel": count("gnn_trunk_dual_bwd_kernel"),
                 "sum_rows_kernel": count("sum_rows_kernel"),
-                "single trunk kernels": count(r"gnn_trunk_fwd_kernel(<1\b|ILi1E)")
+                "single trunk kernels": count("gnn_trunk_fwd_panel_kernel")
                 + count("gnn_trunk_bwd_kernel")}
     if list(profiled.values()) != [1, 1, 1, 0]:
         raise AssertionError(f"the dual path's profile counts {profiled}: {names}")
@@ -808,9 +882,9 @@ def main() -> int:
             out = torch.empty((E * args[3], B), device=dev)
             reps = 30 if B < B_UPD else 10
             v2_kernel_ms = time_ms(torch, lambda: gnn_trunk_v2.launch_v2_kernel(
-                *args, flat2, src_T, adj_T, out), reps=reps)
+                *args, flat2, src_T, adj_T, out), reps=reps, hide_host=True)
             v2_row1_ms = time_ms(torch, lambda: gnn_trunk.launch_kernel(
-                *args, kp, src_T, adj_T, out), reps=reps)
+                *args, kp, src_T, adj_T, out), reps=reps, hide_host=True)
             v2_plain_ms = time_ms(torch, lambda: gnn_trunk_v2.gnn_forward_v2_plain(
                 *args, flat2, src_T, adj_T), reps=5, warmup=1)
             v2_edges = int(((adj_T > 0) & (adj_T < cfg.max_edge_dist)).sum().item())
@@ -1282,6 +1356,8 @@ def main() -> int:
         "eval_launches": eval_launches, "checkpoint_eval_launches": ck_launches[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
+        "bound_ms_by_graphs": {r["B"]: r["bound_ms"] for r in sizes},
         "library_ms": None,
     }, {
         "name": "gnn_trunk_bwd", "route": "cuda",

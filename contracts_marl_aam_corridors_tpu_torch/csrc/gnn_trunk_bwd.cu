@@ -21,7 +21,8 @@
 // products for each FP32 one, about FP32's precision; TF32 alone misses the
 // backward bar); the rest runs on the CUDA cores in FP32.
 //
-// What the design does about it (csrc/gnn_trunk_bwd.cuh):
+// What the design does about it (csrc/gnn_trunk_bwd.cuh, on the panel code of
+// csrc/gnn_trunk_panel.cuh that the forward kernel shares):
 // - Per-layer recompute.  The first forward keeps only the conv layers'
 //   inputs x_0 .. x_{n_tc-1} (E*16 floats a graph each); each layer's
 //   backward recomputes its q/k/v and attention weights head by head from
@@ -66,6 +67,7 @@
 // caller's stream, allocate nothing and return cudaGetLastError() (or a
 // negative code for a configuration they cannot run).
 
+#include "gnn_trunk_panel.cuh"
 #include "gnn_trunk_bwd.cuh"
 
 namespace {
@@ -105,7 +107,11 @@ extern "C" int gnn_trunk_bwd_attributes(int E, int Ds, int H, int F1, int C, int
                                         int n_tc, int* threads, int* regs, int* local_bytes,
                                         int* ctas_per_sm, int* planned_per_sm) {
   const Dims d{E, Ds, H, n_embed, n_tc};
-  return kernel_attributes(gnn_trunk_bwd_kernel, d, F1, C, threads, regs, local_bytes,
+  Plan plan;
+  int grid = 0;
+  const int rc = grid_for(gnn_trunk_bwd_kernel, d, F1, C, 1, &plan, &grid);
+  if (rc != 0) return rc;
+  return kernel_attributes(gnn_trunk_bwd_kernel, plan, threads, regs, local_bytes,
                            ctas_per_sm, planned_per_sm);
 }
 

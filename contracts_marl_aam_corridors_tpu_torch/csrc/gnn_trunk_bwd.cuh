@@ -1,128 +1,43 @@
 // Device code of the GNN trunk backward, shared by csrc/gnn_trunk_bwd.cu (one
 // trunk per launch) and csrc/gnn_trunk_dual_bwd.cu (the actor and critic
-// trunks in one launch): the parameter layout, the tile geometry and
-// shared-memory plan, the 3xTF32 tensor-core products over a tile's panels,
-// the per-thread attention, softmax, LayerNorm and distance steps, one
-// trunk's backward over a tile of graphs, the CTA loop over tiles, the
-// in-order row sum and the launch configuration.
-//
-// A tile is NB consecutive graphs.  Every per-graph quantity lives in a
-// panel: feature row k holds that feature for all M = E*NB (entity, graph)
-// pairs of the tile, m = e*NB + b, so a panel is a column-major (M x rows)
-// matrix with leading dimension LD, and thread m owns column m.  The three
-// product families of a conv layer are then products with M or K = M:
-// q/k/v = X W_h (M x 16 by 16 x 48 per head), dX = dQKV_h W_h^T + dpre
-// Wskip^T, and dW_h = X^T dQKV_h, dWskip = X^T dpre with K = M, whose bias
-// and w_e gradients come out of the same products as column sums (a product
-// with a matrix of ones).  The E x E per-graph arrays (masked distances,
-// distance gradient, attention weights and their gradients) are planes
-// [s][t*NB + b], one plane per source s.
+// trunks in one launch): the backward's tile geometry and shared-memory
+// plan, its per-thread softmax, LayerNorm and distance steps, one trunk's
+// backward over a tile of graphs, the CTA loop over tiles, the in-order row
+// sum and the launch configuration.  The forward it recomputes, the
+// parameter layout, the 3xTF32 products over a tile's panels and the plan
+// search are csrc/gnn_trunk_panel.cuh's, shared with the forward kernel
+// (csrc/gnn_trunk_fwd.cu); that header describes the panel layout.  The
+// backward's own products are dX = dQKV_h W_h^T + dpre Wskip^T, and dW_h =
+// X^T dQKV_h, dWskip = X^T dpre with K = M, whose bias and w_e gradients
+// come out of the same products as column sums (a product with a matrix of
+// ones); the distance gradient is a plane [s][t*NB + b] as the distances
+// are.
 #pragma once
 
-#include <cuda_runtime.h>
-
-#include <cfloat>
-#include <cmath>
-#include <cstdint>
-#include <mutex>
+#include "gnn_trunk_panel.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr unsigned kFull = 0xffffffffu;
-// The one width instantiated (embed hidden = gnn hidden = 16), as in the
-// forward kernel.
-constexpr int W = 16;
-constexpr int kMaxEntities = 32;
-constexpr int kMaxEmbedLayers = 4;
-constexpr int kMaxTcLayers = 8;
 constexpr int kMaxGraphsPerCta = 32;
-// At most 256 threads a CTA, so a thread may keep up to 255 registers.
+// At most 256 threads a CTA, so a thread may keep up to 255 registers: 8
+// warps an SM at the launch bound, whatever the compiler makes of the
+// kernel.
 constexpr int kMaxThreads = 256;
-constexpr int kSmemLimit = 232448;  // 227 KB a block can request on sm_90
-constexpr int kMaxThreadsPerSm = 2048;
-constexpr int kMaxCtasPerSm = 32;
-// The register file of an SM and what a warp takes of it at the launch
-// bound's 255 registers a thread (allocated 8 a thread at a time): 8 warps
-// an SM, whatever the compiler makes of the kernel.
-constexpr int kRegsPerSm = 65536;
-constexpr int kRegsPerWarp = 256 * kWarp;
-constexpr float kNeg = -FLT_MAX;  // finfo(float32).min
-constexpr float kLnEps = 1e-5f;
+constexpr int kMaxRegs = 255;
 // Row stride of a warp's staging rows (32 lanes + 4): the tensor-core
 // fragments of a (16 x 32) block then read 32 distinct banks.
 constexpr int kStage = kWarp + 4;
 
-struct Dims {
-  int E, Ds, H, n_embed, n_tc;
-};
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-// Offsets into the parameter blob (ops/gnn_trunk.py param_blob order):
-// W1 (Ds, W), b1, w_e1, ln1 scale, ln1 bias, n_embed x [W (W, W), b, ln
-// scale, ln bias], n_tc x [Wqkv (W, 3HW), bqkv, w_e (HW), Wskip (W, W),
-// bskip]; weights stored (in, out).
-struct ParamLayout {
-  int b1, we1, ln1s, ln1b, embed0, embed_stride, embed_size, tc0, tc_stride, total;
-  __host__ __device__ explicit ParamLayout(const Dims& d) {
-    const int QKV = 3 * d.H * W;
-    b1 = d.Ds * W;
-    we1 = b1 + W;
-    ln1s = we1 + W;
-    ln1b = ln1s + W;
-    embed0 = ln1b + W;
-    embed_stride = W * W + 3 * W;
-    embed_size = embed0 + d.n_embed * embed_stride;
-    tc0 = embed_size;
-    tc_stride = W * QKV + QKV + d.H * W + W * W + W;
-    total = tc0 + d.n_tc * tc_stride;
-  }
-  // LayerNorm scale / bias of EmbedConv stage l (0: ln1, l >= 1: ln{l+1})
-  __device__ int ln_scale(int l) const {
-    return l == 0 ? ln1s : embed0 + (l - 1) * embed_stride + W * W + W;
-  }
-  __device__ int ln_bias(int l) const {
-    return l == 0 ? ln1b : embed0 + (l - 1) * embed_stride + W * W + 2 * W;
-  }
-};
-
-// The tile geometry and the CTA's shared memory plan, in floats.
-struct Geom {
-  int NB, M, Mp, T, nw, LD, LDA, HC, QKV, ldw;
-  // the staged conv layer's weights, from `w`: Wqkv (W rows of ldw), bqkv,
-  // w_e, Wskip (W x W), bskip; the EmbedConv's are staged at their blob
-  // offsets
-  int wq, bq, we, wsk, bsk;
-  int w, dm, dadj, alpha, us, xs, dpre, dx, scr, size;
+// The backward's shared-memory plan, in floats, beside the panel geometry.
+struct Geom : PanelGeom {
+  int dadj, us, xs, dpre, dx;
   // inside scr during the EmbedConv phases: src (Ds rows), h_src (W rows),
   // each warp's staging rows and its parameter-gradient accumulator
-  int hsrc, stage, wacc, wacc_stride;
-  __host__ __device__ Geom(const Dims& d, const ParamLayout& pl, int nb) {
-    NB = nb;
-    M = d.E * nb;
-    Mp = round_up(M, 16);
-    T = round_up(M, kWarp);
-    nw = T / kWarp;
-    // LD = 8 (mod 32): a fragment's rows (stride 1) and columns (stride LD)
-    // fall on distinct banks
-    LD = Mp + (40 - Mp % 32) % 32;
-    // a plane's stride = NB (mod 32): where a warp spans several sources,
-    // their rows of one target fall on distinct banks
-    LDA = M + (NB % 32 - M % 32 + 32) % 32;
-    HC = d.H * W;
-    QKV = 3 * HC;
-    ldw = QKV + 8;  // = 8 or 24 (mod 32)
-    wq = 0;
-    bq = W * ldw;
-    we = bq + QKV;
-    wsk = we + HC;
-    bsk = wsk + W * W;
+  int stage, wacc, wacc_stride;
+  __host__ __device__ Geom(const Dims& d, const ParamLayout& pl, int nb) : PanelGeom(d, nb) {
     int o = 0;
     w = o;
-    o += round_up(imax(bsk + W, pl.embed_size), 32);
+    o += round_up(imax(tc_floats(), pl.embed_size), 32);
     const int plane = round_up(d.E * LDA, 32);
     dm = o;
     o += plane;
@@ -143,7 +58,6 @@ struct Geom {
     // product in the forward, the per-graph w_e gradient terms in the
     // backward)
     const int conv = 4 * W * LD;
-    hsrc = d.Ds * LD;
     stage = round_up(hsrc + W * LD, 32);
     wacc_stride = round_up(pl.embed_size, 32);
     wacc = stage + nw * 2 * W * kStage;
@@ -152,63 +66,9 @@ struct Geom {
   }
 };
 
-__device__ __forceinline__ float act(float v, int relu) {
-  return relu ? fmaxf(v, 0.f) : tanhf(v);
-}
-
 // The activation's derivative, from its output.
 __device__ __forceinline__ float act_grad(float y, int relu) {
   return relu ? (y > 0.f ? 1.f : 0.f) : 1.f - y * y;
-}
-
-__device__ __forceinline__ void ln_stats(const float (&m)[W], float& mu, float& r) {
-  mu = 0.f;
-#pragma unroll
-  for (int f = 0; f < W; ++f) mu += m[f];
-  mu = mu / W;
-  float var = 0.f;
-#pragma unroll
-  for (int f = 0; f < W; ++f) {
-    const float dv = m[f] - mu;
-    var += dv * dv;
-  }
-  var = var / W;
-  r = 1.f / sqrtf(var + kLnEps);
-}
-
-__device__ __forceinline__ void layer_norm(float (&m)[W], const float* scale,
-                                           const float* bias) {
-  float mu, r;
-  ln_stats(m, mu, r);
-#pragma unroll
-  for (int f = 0; f < W; ++f) m[f] = (m[f] - mu) * r * scale[f] + bias[f];
-}
-
-// One edge's EmbedConv chain up to stage l, from its source's h_src `hs` and
-// its masked distance: `a` gets stage l's activation output (its LayerNorm's
-// input), `yp` stage l's Linear input (stage l-1's LayerNorm output; zero
-// for l = 0).  P holds the EmbedConv's parameters at their blob offsets.
-__device__ void edge_upto(int l, const float (&hs)[W], float dv, const float* P,
-                          const ParamLayout& pl, int relu, float (&a)[W], float (&yp)[W]) {
-#pragma unroll
-  for (int f = 0; f < W; ++f) {
-    a[f] = act(hs[f] + dv * P[pl.we1 + f], relu);
-    yp[f] = 0.f;
-  }
-  for (int j = 1; j <= l; ++j) {
-#pragma unroll
-    for (int f = 0; f < W; ++f) yp[f] = a[f];
-    layer_norm(yp, P + pl.ln_scale(j - 1), P + pl.ln_bias(j - 1));
-    const float* WT = P + pl.embed0 + (j - 1) * pl.embed_stride;
-    const float* bb = WT + W * W;
-#pragma unroll
-    for (int f = 0; f < W; ++f) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < W; ++k) acc = fmaf(WT[k * W + f], yp[k], acc);
-      a[f] = act(acc + bb[f], relu);
-    }
-  }
 }
 
 // Adds the sums over the warp's 32 lanes of each lane's 16 values v to
@@ -232,38 +92,7 @@ __device__ __forceinline__ void warp_sum16_add(const float (&v)[W], float* dst, 
   if (!(lane & 1)) dst[(lane >> 1) & 15] += s;
 }
 
-// ---------------------------------------------------------------- 3xTF32
-
-// x = hi + lo, both TF32 (10-bit mantissa); hi * hi + hi * lo + lo * hi
-// keeps about FP32's precision.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += A B for one 16 x 8 x 8 step in 3xTF32.  Fragments (g = lane / 4,
-// q = lane % 4): a = A(g, q), A(g + 8, q), A(g, q + 4), A(g + 8, q + 4);
-// b = B(q, g), B(q + 4, g); d = D(g, 2q), D(g, 2q + 1), D(g + 8, 2q),
-// D(g + 8, 2q + 1).
-__device__ __forceinline__ void mma3(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) split_tf32(b[i], bh[i], bl[i]);
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
+// ---------------------------------------------------------------- 3xTF32 sums
 
 // d += 1 B: every row of d gets B's column sums (1 is exact in TF32, so the
 // two products of B's parts are all 3xTF32 has).
@@ -275,44 +104,6 @@ __device__ __forceinline__ void mma_ones(float (&d)[4], const float (&b)[2]) {
   for (int i = 0; i < 2; ++i) split_tf32(b[i], bh[i], bl[i]);
   mma_tf32(d, a, bl);
   mma_tf32(d, a, bh);
-}
-
-// out[n][m] (=, or += with `accumulate`) sum_k A[k][m] B(k, n) + bias(n) for
-// the tile's M rows: A a panel of K rows, `bw(k, n)` and `bias(n)` read the
-// staged weights, out a panel of N rows.  The warps share the 16 x 8 output
-// tiles in a fixed order.
-template <class BW, class Bias>
-__device__ __forceinline__ void prod_panel(const float* A, int K, BW bw, int N, Bias bias,
-                                           float* out, bool accumulate, const Geom& G,
-                                           int warp, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-  const int nts = N / 8, tiles = (G.Mp / 16) * nts;
-  for (int t = warp; t < tiles; t += G.nw) {
-    const int r0 = (t / nts) * 16 + g, r1 = r0 + 8, c0 = (t % nts) * 8 + 2 * q;
-    const bool ok0 = r0 < G.M, ok1 = r1 < G.M;
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
-    if (accumulate) {
-      if (ok0) d[0] = out[c0 * G.LD + r0], d[1] = out[(c0 + 1) * G.LD + r0];
-      if (ok1) d[2] = out[c0 * G.LD + r1], d[3] = out[(c0 + 1) * G.LD + r1];
-    }
-    const int n = (t % nts) * 8 + g;
-    for (int k0 = 0; k0 < K; k0 += 8) {
-      const float* a0 = A + (k0 + q) * G.LD;
-      const float* a4 = a0 + 4 * G.LD;
-      const float a[4] = {ok0 ? a0[r0] : 0.f, ok1 ? a0[r1] : 0.f, ok0 ? a4[r0] : 0.f,
-                          ok1 ? a4[r1] : 0.f};
-      const float b[2] = {bw(k0 + q, n), bw(k0 + q + 4, n)};
-      mma3(d, a, b);
-    }
-    if (ok0) {
-      out[c0 * G.LD + r0] = d[0] + bias(c0);
-      out[(c0 + 1) * G.LD + r0] = d[1] + bias(c0 + 1);
-    }
-    if (ok1) {
-      out[c0 * G.LD + r1] = d[2] + bias(c0);
-      out[(c0 + 1) * G.LD + r1] = d[3] + bias(c0 + 1);
-    }
-  }
 }
 
 // The sums over the tile's M rows of products of panel rows: for the first
@@ -378,125 +169,6 @@ struct Trunks {
   TrunkIO t[NT];
 };
 
-// Loads the tile's src into scr rows [0, Ds) and computes h_src = W1 src +
-// b1 into rows [Ds, Ds + W) (the EmbedConv's parameters staged in w).
-// Ends synchronised.
-__device__ void load_src_hsrc(float* sm, const Geom& G, const Dims& d, const ParamLayout& pl,
-                              const float* __restrict__ src_T, long long B, long long b0,
-                              bool valid, int m) {
-  float* scr = sm + G.scr;
-  for (int i = threadIdx.x; i < d.E * d.Ds * G.NB; i += blockDim.x) {
-    const int r = i / G.NB, b = i - r * G.NB;  // r = e*Ds + k
-    const int e = r / d.Ds, k = r - e * d.Ds;
-    const long long gb = b0 + b;
-    scr[k * G.LD + e * G.NB + b] = gb < B ? src_T[r * B + gb] : 0.f;
-  }
-  __syncthreads();
-  if (valid) {
-    const float* P = sm + G.w;
-    float h[W];
-#pragma unroll
-    for (int f = 0; f < W; ++f) h[f] = P[pl.b1 + f];
-    for (int k = 0; k < d.Ds; ++k) {
-      const float s = scr[k * G.LD + m];
-#pragma unroll
-      for (int f = 0; f < W; ++f) h[f] = fmaf(P[k * W + f], s, h[f]);
-    }
-#pragma unroll
-    for (int f = 0; f < W; ++f) scr[G.hsrc + f * G.LD + m] = h[f];
-  }
-  __syncthreads();
-}
-
-// Stages conv layer l's weights (blob order) into w, Wqkv rows padded to ldw.
-__device__ void stage_tc(float* sm, const Geom& G, const ParamLayout& pl,
-                         const float* __restrict__ params, int l) {
-  const float* src = params + pl.tc0 + l * pl.tc_stride;
-  float* w = sm + G.w;
-  for (int i = threadIdx.x; i < W * G.QKV; i += blockDim.x) {
-    const int k = i / G.QKV, j = i - k * G.QKV;
-    w[G.wq + k * G.ldw + j] = src[i];
-  }
-  // bqkv, w_e, Wskip, bskip lie in the same order in the blob and in w
-  for (int i = threadIdx.x; i < pl.tc_stride - W * G.QKV; i += blockDim.x)
-    w[G.bq + i] = src[W * G.QKV + i];
-}
-
-// Head h's column j < 3W of the q/k/v stack (q | k | v, each H*W wide).
-__device__ __forceinline__ int qkv_col(const Geom& G, int h, int j) {
-  return (j / W) * G.HC + h * W + (j % W);
-}
-
-// Head h's q, k, v of the tile into scr rows [0, 3W): X W_h + b_h.
-__device__ __forceinline__ void prod_qkv(float* sm, const Geom& G, const float* X, int h,
-                                         int warp, int lane) {
-  const float* w = sm + G.w;
-  prod_panel(
-      X, W, [&](int k, int n) { return w[G.wq + k * G.ldw + qkv_col(G, h, n)]; }, 3 * W,
-      [&](int n) { return w[G.bq + qkv_col(G, h, n)]; }, sm + G.scr, false, G, warp, lane);
-}
-
-// Thread m = (t, b): head h's attention weights of target t over the
-// sources s, alpha[s][m] (the any-edge factor applied), from its query q
-// (and q . w_e).  Masked logits are finfo.min, so a masked source's weight
-// is exactly zero; a target with no in-edge gets zero weights.
-__device__ __forceinline__ void attention_weights(float* sm, const Geom& G, const Dims& d,
-                                                  const float (&q)[W], float qwe, int m, int b) {
-  const float* K = sm + G.scr + W * G.LD;
-  const float* dm = sm + G.dm;
-  float* al = sm + G.alpha;
-  const float inv_sqrt_c = 1.f / sqrtf((float)W);
-  float mx = -INFINITY, any_edge = 0.f;
-  for (int s = 0; s < d.E; ++s) {
-    const float dv = dm[s * G.LDA + m];
-    const int col = s * G.NB + b;
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < W; ++c) acc = fmaf(q[c], K[c * G.LD + col], acc);
-    const float lv = dv > 0.f ? (acc + dv * qwe) * inv_sqrt_c : kNeg;
-    al[s * G.LDA + m] = lv;
-    mx = fmaxf(mx, lv);
-    any_edge = dv > 0.f ? 1.f : any_edge;
-  }
-  float sum = 0.f;
-  for (int s = 0; s < d.E; ++s) {
-    const float ex = expf(al[s * G.LDA + m] - mx);
-    al[s * G.LDA + m] = ex;
-    sum += ex;
-  }
-  const float scale = any_edge / sum;
-  for (int s = 0; s < d.E; ++s) al[s * G.LDA + m] *= scale;
-}
-
-// The EmbedConv forward of target t = m / NB: x_0[t] = sum over masked
-// sources of the edge chain's LayerNorm output, into the x_0 panel.
-__device__ void embed_forward(float* sm, const Geom& G, const Dims& d, const ParamLayout& pl,
-                              int relu, bool valid, int m, int b) {
-  const float* P = sm + G.w;
-  const float* hsrc = sm + G.scr + G.hsrc;
-  const float* dm = sm + G.dm;
-  float x0[W];
-#pragma unroll
-  for (int f = 0; f < W; ++f) x0[f] = 0.f;
-  for (int s = 0; s < d.E; ++s) {
-    const float dv = valid ? dm[s * G.LDA + m] : 0.f;
-    if (!__any_sync(kFull, dv > 0.f)) continue;
-    float hs[W], a[W], yp[W];
-    const int col = s * G.NB + b;
-#pragma unroll
-    for (int f = 0; f < W; ++f) hs[f] = valid ? hsrc[f * G.LD + col] : 0.f;
-    edge_upto(d.n_embed, hs, dv, P, pl, relu, a, yp);
-    layer_norm(a, P + pl.ln_scale(d.n_embed), P + pl.ln_bias(d.n_embed));
-    const float mv = dv > 0.f ? 1.f : 0.f;
-#pragma unroll
-    for (int f = 0; f < W; ++f) x0[f] = fmaf(mv, a[f], x0[f]);
-  }
-  if (valid) {
-    float* X0 = sm + G.xs;
-#pragma unroll
-    for (int f = 0; f < W; ++f) X0[f * G.LD + m] = x0[f];
-  }
-}
 
 // The EmbedConv backward of source s = m / NB, edge by edge over the
 // targets, the dx panel holding the gradient of x_0: each stage's chain is
@@ -658,50 +330,16 @@ __device__ void trunk_tile_backward(float* sm, const Geom& G, const Dims& d,
   __syncthreads();
   for (int i = tid; i < pl.embed_size; i += blockDim.x) w[i] = params[i];
   load_src_hsrc(sm, G, d, pl, io.src_T, B, b0, valid, m);
-  embed_forward(sm, G, d, pl, embed_relu, valid, m, b);
+  embed_forward(sm, G, d, pl, embed_relu, valid, m, b, sm + G.xs);
 
   // ---- forward: the conv layers; the last turns its output into dpre
   for (int l = 0; l < d.n_tc; ++l) {
     __syncthreads();
-    stage_tc(sm, G, pl, params, l);
+    stage_tc(w, G, pl, params, l);
     __syncthreads();
-    const float* X = sm + G.xs + l * W * G.LD;
-    prod_panel(
-        X, W, [&](int k, int n) { return w[G.wsk + k * W + n]; }, W, [](int) { return 0.f; },
-        scr + 3 * W * G.LD, false, G, warp, lane);
     float acc[W];
-    for (int h = 0; h < d.H; ++h) {
-      if (h > 0) __syncthreads();
-      prod_qkv(sm, G, X, h, warp, lane);
-      __syncthreads();
-      if (valid) {
-        const float* Q = scr;
-        const float* V = scr + 2 * W * G.LD;
-        float q[W], we[W];
-        float qwe = 0.f;
-#pragma unroll
-        for (int c = 0; c < W; ++c) {
-          q[c] = Q[c * G.LD + m];
-          we[c] = w[G.we + h * W + c];
-          qwe = fmaf(q[c], we[c], qwe);
-          if (h == 0) acc[c] = scr[(3 * W + c) * G.LD + m] + w[G.bsk + c];
-        }
-        attention_weights(sm, G, d, q, qwe, m, b);
-        float o[W];
-#pragma unroll
-        for (int c = 0; c < W; ++c) o[c] = 0.f;
-        float ad = 0.f;
-        for (int s = 0; s < d.E; ++s) {
-          const float a = alpha[s * G.LDA + m];
-          ad = fmaf(a, dm[s * G.LDA + m], ad);
-          const int col = s * G.NB + b;
-#pragma unroll
-          for (int c = 0; c < W; ++c) o[c] = fmaf(a, V[c * G.LD + col], o[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < W; ++c) acc[c] += (o[c] + ad * we[c]) * inv_h;
-      }
-    }
+    conv_forward<true>(sm, G, d, w, sm + G.xs + l * W * G.LD, scr + 3 * W * G.LD, valid, m, b,
+                       warp, lane, acc);
     if (valid) {
       if (l + 1 < d.n_tc) {
         float* Y = sm + G.xs + (l + 1) * W * G.LD;
@@ -722,7 +360,7 @@ __device__ void trunk_tile_backward(float* sm, const Geom& G, const Dims& d,
   for (int l = d.n_tc - 1; l >= 0; --l) {
     __syncthreads();
     if (l + 1 < d.n_tc) {
-      stage_tc(sm, G, pl, params, l);
+      stage_tc(w, G, pl, params, l);
       if (valid) {
         const float* Y = sm + G.xs + (l + 1) * W * G.LD;
 #pragma unroll
@@ -743,7 +381,7 @@ __device__ void trunk_tile_backward(float* sm, const Geom& G, const Dims& d,
         [&](int j) -> float& { return tc[o_bsk + j]; }, G, warp, lane);
     for (int h = 0; h < d.H; ++h) {
       if (h > 0) __syncthreads();
-      prod_qkv(sm, G, X, h, warp, lane);
+      prod_qkv(sm, G, w, X, h, warp, lane);
       __syncthreads();
       // thread m = (t, b): the weights again, then the softmax backward, the
       // distance terms and dq; the w_e gradient terms into scr rows [3W, 4W)
@@ -921,68 +559,15 @@ __global__ void sum_rows_kernel(const float* __restrict__ partial, float* __rest
 
 // ---------------------------------------------------------------- host side
 
-// A device's SM count and shared memory per SM and reserved per CTA, read
-// at its first launch and kept.
-struct DeviceInfo {
-  int sms = 0, smem_sm = 0, reserved = 0;
-};
-constexpr int kMaxDevices = 64;
-DeviceInfo g_devices[kMaxDevices];
-int g_smem_set[kMaxDevices];  // the dynamic shared memory the kernel may use
-std::mutex g_devices_mutex;
-
-int device_info(int* dev, DeviceInfo* info) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return (int)err;
-  if (*dev >= kMaxDevices) return -6;
-  std::lock_guard<std::mutex> lock(g_devices_mutex);
-  DeviceInfo& di = g_devices[*dev];
-  if (di.sms == 0) {
-    if ((err = cudaDeviceGetAttribute(&di.smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                                      *dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&di.reserved, cudaDevAttrReservedSharedMemoryPerBlock,
-                                      *dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&di.sms, cudaDevAttrMultiProcessorCount, *dev)) !=
-            cudaSuccess) {
-      di.sms = 0;
-      return (int)err;
-    }
-  }
-  *info = di;
-  return 0;
-}
-
-// The launch shape: graphs per CTA, threads, dynamic shared memory, and the
-// CTAs an SM holds by shared memory, threads and registers.
-struct Plan {
-  int nb = 0, threads = 0, smem = 0, per_sm = 0;
-};
-
 // Picks NB, the graphs per CTA, that puts the most graphs on an SM by shared
 // memory, threads (at most kMaxThreads a CTA) and registers at the launch
 // bound, the larger NB on a tie.  The plan depends on the dimensions and the
 // device only, not on the kernel, so the single and the dual backward tile a
 // batch alike.
 int configure(const Dims& d, int F1, int C, const DeviceInfo& di, Plan* plan) {
-  if (F1 != W || C != W) return -1;
-  if (d.E < 1 || d.E > kMaxEntities || d.Ds < 1 || d.H < 1) return -2;
-  if (d.n_embed < 0 || d.n_embed > kMaxEmbedLayers || d.n_tc < 1 || d.n_tc > kMaxTcLayers)
-    return -4;
-  const ParamLayout pl(d);
-  Plan best;
-  for (int nb = kMaxGraphsPerCta; nb >= 1; --nb) {
-    const Geom G(d, pl, nb);
-    const long long smem = (long long)G.size * (long long)sizeof(float);
-    if (G.T > kMaxThreads || smem > kSmemLimit) continue;
-    const int per_sm = imin(imin(di.smem_sm / ((int)smem + di.reserved),
-                                 kMaxThreadsPerSm / G.T),
-                            imin(kRegsPerSm / (kRegsPerWarp * G.nw), kMaxCtasPerSm));
-    if (per_sm >= 1 && nb * per_sm > best.nb * best.per_sm)
-      best = {nb, G.T, (int)smem, per_sm};
-  }
-  if (best.nb == 0) return -3;
-  *plan = best;
-  return 0;
+  const int rc = check_dims(d, F1, C);
+  if (rc != 0) return rc;
+  return best_plan<Geom>(d, di, kMaxGraphsPerCta, kMaxThreads, kMaxRegs, plan);
 }
 
 // The plan of `kernel` over B graphs and the CTAs it launches (the rows of
@@ -996,41 +581,10 @@ int grid_for(Kernel kernel, const Dims& d, int F1, int C, long long B, Plan* pla
   int rc = device_info(&dev, &di);
   if (rc != 0) return rc;
   if ((rc = configure(d, F1, C, di, plan)) != 0) return rc;
-  {
-    std::lock_guard<std::mutex> lock(g_devices_mutex);
-    if (g_smem_set[dev] < plan->smem) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
-      if (err != cudaSuccess) return (int)err;
-      g_smem_set[dev] = plan->smem;
-    }
-  }
+  if ((rc = allow_smem(kernel, dev, plan->smem)) != 0) return rc;
   const long long ctas = (long long)di.sms * plan->per_sm;
   const long long tiles = (B + plan->nb - 1) / plan->nb;
   *grid = (int)(ctas < tiles ? ctas : tiles);
-  return 0;
-}
-
-// What the compiler and the card make of the kernel at these dimensions:
-// registers a thread, local memory a thread, and the CTAs an SM actually
-// holds (beside the plan's shared-memory and thread count).
-template <typename Kernel>
-int kernel_attributes(Kernel kernel, const Dims& d, int F1, int C, int* threads, int* regs,
-                      int* local_bytes, int* ctas_per_sm, int* planned_per_sm) {
-  Plan plan;
-  int grid = 0;
-  int rc = grid_for(kernel, d, F1, C, 1, &plan, &grid);
-  if (rc != 0) return rc;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, plan.threads,
-                                                           plan.smem)) != cudaSuccess)
-    return (int)err;
-  *threads = plan.threads;
-  *regs = attr.numRegs;
-  *local_bytes = (int)attr.localSizeBytes;
-  *planned_per_sm = plan.per_sm;
   return 0;
 }
 

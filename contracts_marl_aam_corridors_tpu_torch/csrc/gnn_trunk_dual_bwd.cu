@@ -37,6 +37,7 @@
 // caller's stream, allocate nothing and return cudaGetLastError() (or a
 // negative code for a configuration they cannot run).
 
+#include "gnn_trunk_panel.cuh"
 #include "gnn_trunk_bwd.cuh"
 
 namespace {
@@ -81,7 +82,11 @@ extern "C" int gnn_trunk_dual_bwd_attributes(int E, int Ds, int H, int F1, int C
                                              int* local_bytes, int* ctas_per_sm,
                                              int* planned_per_sm) {
   const Dims d{E, Ds, H, n_embed, n_tc};
-  return kernel_attributes(gnn_trunk_dual_bwd_kernel, d, F1, C, threads, regs, local_bytes,
+  Plan plan;
+  int grid = 0;
+  const int rc = grid_for(gnn_trunk_dual_bwd_kernel, d, F1, C, 1, &plan, &grid);
+  if (rc != 0) return rc;
+  return kernel_attributes(gnn_trunk_dual_bwd_kernel, plan, threads, regs, local_bytes,
                            ctas_per_sm, planned_per_sm);
 }
 

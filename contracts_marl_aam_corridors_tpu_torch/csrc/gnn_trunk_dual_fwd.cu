@@ -15,8 +15,8 @@
 // byte.
 //
 // What the design does about it: each graph is one warp's job and a CTA takes
-// G consecutive graphs, as in the single forward, with both trunks'
-// parameters staged once per CTA in shared memory.  Per tile of graphs the
+// G consecutive graphs, with both trunks' parameters staged once per CTA in
+// shared memory.  Per tile of graphs the
 // CTA reads the adjacency once and keeps the edge mask, the masked distances
 // and each target's any-edge factor in shared memory, computed once per graph
 // for both trunks (the TPU kernel gets the same sharing from Mosaic's CSE of
@@ -24,8 +24,10 @@
 // the actor's trunk and the critic's trunk one after the other on the same
 // per-graph scratch, loading each trunk's src and storing each trunk's (E*C)
 // output in turn.  Nothing but the inputs and the two outputs touches device
-// memory.  The kernel is the single forward's, instantiated for two trunks
-// (gnn_trunk_fwd.cuh gnn_trunk_fwd_kernel<2, ...>).
+// memory.  The kernel is gnn_trunk_fwd.cuh's template, instantiated for two
+// trunks (gnn_trunk_fwd_kernel<2, ...>); the single trunk's forward
+// kernel (csrc/gnn_trunk_fwd.cu) is another design, the panel code it
+// shares with the backward.
 //
 // Interface: plain C functions, loaded with ctypes; the launch goes on the
 // caller's stream, allocates nothing and returns cudaGetLastError() (or a

@@ -1,9 +1,12 @@
-// Device code of the GNN trunk forward, shared by csrc/gnn_trunk_fwd.cu (one
-// trunk per launch) and csrc/gnn_trunk_dual_fwd.cu (the actor and critic
-// trunks in one launch): the per-graph shared-memory layout, the parameter
-// count, the one-warp forward of one graph, the per-device launch plan, and
-// the kernel, its configuration and its launch, each a template over the
-// number of trunks that share one adjacency (1 or 2).
+// Device code of the dual-trunk forward, csrc/gnn_trunk_dual_fwd.cu (the
+// actor and critic trunks in one launch): the per-graph shared-memory
+// layout, the parameter count, the one-warp forward of one graph, the
+// per-device launch plan, and the kernel, its configuration and its launch,
+// each a template over the number of trunks that share one adjacency.  It
+// serves the dual forward alone: the single trunk's forward
+// (csrc/gnn_trunk_fwd.cu) runs the panel code of csrc/gnn_trunk_panel.cuh,
+// and this header stays until the dual forward moves onto that code too
+// (ROADMAP B7).
 #pragma once
 
 #include <cuda_runtime.h>

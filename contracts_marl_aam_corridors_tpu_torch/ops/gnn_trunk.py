@@ -24,9 +24,11 @@ Layout contract (float32), as in the JAX package:
 Both wrappers run the plain version for tensors on the CPU and the kernel
 for tensors on the card; on the card they launch the kernel or raise.  The
 kernels are compiled with ``nvcc`` at first use, each from its source in the
-package (and the headers it includes), into ``build/kernels/`` at the
-repository root; ``build_all`` also builds the v2 formulation's kernel of
-``ops/gnn_trunk_v2.py``.
+package, into ``build/kernels/`` at the repository root, under a name that
+hashes the source and every header it reaches (``source_tag``); the single
+trunk's forward and backward share the panel code of
+``csrc/gnn_trunk_panel.cuh``.  ``build_all`` also builds the v2
+formulation's kernel of ``ops/gnn_trunk_v2.py``.
 """
 from __future__ import annotations
 
@@ -399,21 +401,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the trunk kernels cannot be built")
 
 
-@functools.lru_cache(maxsize=None)
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` for sm_90a into a shared library with a
-    plain C interface (once per process; the file name carries the hash of
-    the source and the headers it includes).  Returns the library path, the compile seconds and the ptxas
-    register/spill/shared-memory lines."""
-    if name not in KERNELS:
-        raise ValueError(f"no kernel {name!r}; the kernels are {KERNELS}")
-    source = CSRC / f"{name}.cu"
-    text = source.read_bytes()
-    headers = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
-    tag = hashlib.sha256(b"".join([text] + [(CSRC / h.decode()).read_bytes()
-                                            for h in headers])).hexdigest()[:12]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"lib{name}_{tag}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', flags=re.M)
+
+
+def include_closure(name: str, csrc: Path = CSRC) -> list[str]:
+    """The headers ``csrc/<name>.cu`` reaches through quoted includes,
+    nested ones too, in the order first reached (paths relative to
+    ``csrc``)."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        text = (csrc / todo.pop(0)).read_bytes()
+        for inc in _INCLUDE.findall(text):
+            header = inc.decode()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
+def source_tag(name: str, csrc: Path = CSRC) -> str:
+    """The hash that names ``csrc/<name>.cu``'s library: the source and every
+    header it reaches, so a change to any of them builds anew."""
+    h = hashlib.sha256()
+    for f in [f"{name}.cu"] + include_closure(name, csrc):
+        h.update(f.encode() + b"\0" + (csrc / f).read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
+def compile_kernel(source: Path, lib: Path) -> dict:
+    """``nvcc`` for sm_90a: ``source`` into the shared library ``lib`` with
+    a plain C interface.  Returns the library path, the compile seconds and
+    the ptxas register, spill and shared-memory lines."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -423,11 +442,21 @@ def build(name: str) -> dict:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{proc.stderr}")
     os.replace(str(lib) + ".tmp", lib)
     ptxas = [ln.strip() for ln in proc.stderr.splitlines()
              if "registers" in ln or "spill" in ln or "smem" in ln]
     return {"library": str(lib), "seconds": seconds, "ptxas": ptxas}
+
+
+@functools.lru_cache(maxsize=None)
+def build(name: str) -> dict:
+    """Compile ``csrc/<name>.cu`` for sm_90a into a shared library with a
+    plain C interface (once per process; the file name carries
+    :func:`source_tag`).  Returns :func:`compile_kernel`'s record."""
+    if name not in KERNELS:
+        raise ValueError(f"no kernel {name!r}; the kernels are {KERNELS}")
+    return compile_kernel(CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}_{source_tag(name)}.so")
 
 
 def build_all() -> dict:
@@ -442,7 +471,8 @@ _ip = ctypes.POINTER(_i)
 _SIGNATURES = {
     "gnn_trunk_fwd": {
         "gnn_trunk_fwd": [_p, _p, _p, _p, _ll] + [_i] * 7 + [_f, _i, _i, _i, _p],
-        "gnn_trunk_fwd_config": [_i] * 7 + [_ip] * 3,
+        "gnn_trunk_fwd_config": [_i] * 7 + [_ll] + [_ip] * 5,
+        "gnn_trunk_fwd_attributes": [_i] * 7 + [_ll] + [_ip] * 5,
     },
     "gnn_trunk_bwd": {
         "gnn_trunk_bwd": [_p] * 8 + [_ll] + [_i] * 7 + [_f] + [_i] * 4 + [_p],
@@ -483,6 +513,7 @@ _CONFIG_ERRORS = {
     -6: "device ordinal beyond the kernel's launch-plan table",
     -7: "the scratch buffer has fewer rows than the launch has CTAs",
     -8: "empty batch",
+    -9: "more panel kernels on one device than the library's table holds",
 }
 
 
@@ -494,15 +525,15 @@ def _check_rc(name: str, rc: int) -> None:
     raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def kernel_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n) -> dict:
-    """Graphs per CTA, dynamic shared memory bytes and parameter floats the
-    forward kernel uses for these dimensions (raises where it cannot run
-    them)."""
-    g, smem, npar = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+def kernel_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
+    """The forward kernel's plan for a batch of B graphs: graphs per CTA,
+    threads per (entity, graph) row, dynamic shared memory bytes, parameter
+    floats and CTAs (raises where it cannot run these dimensions)."""
+    out = [ctypes.c_int() for _ in range(5)]
     _check_rc("gnn_trunk_fwd", _library("gnn_trunk_fwd").gnn_trunk_fwd_config(
-        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n,
-        ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar)))
-    return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value}
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B, *(ctypes.byref(o) for o in out)))
+    keys = ("graphs_per_cta", "threads_per_row", "smem_bytes", "n_params", "ctas")
+    return dict(zip(keys, (o.value for o in out)))
 
 
 def backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
@@ -549,6 +580,18 @@ def backward_attributes(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, dual=False)
     out = [ctypes.c_int() for _ in range(5)]
     _check_rc(name, getattr(_library(name), f"{name}_attributes")(
         E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, *(ctypes.byref(o) for o in out)))
+    keys = ("threads", "registers", "local_bytes", "ctas_per_sm", "planned_ctas_per_sm")
+    return dict(zip(keys, (o.value for o in out)))
+
+
+def forward_attributes(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
+    """What the compiler and the card make of the forward kernel under its
+    plan for a batch of B graphs, as :func:`backward_attributes` gives them:
+    threads a CTA, registers and local memory bytes a thread, the CTAs an SM
+    holds and the CTAs an SM the plan counts."""
+    out = [ctypes.c_int() for _ in range(5)]
+    _check_rc("gnn_trunk_fwd", _library("gnn_trunk_fwd").gnn_trunk_fwd_attributes(
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B, *(ctypes.byref(o) for o in out)))
     keys = ("threads", "registers", "local_bytes", "ctas_per_sm", "planned_ctas_per_sm")
     return dict(zip(keys, (o.value for o in out)))
 
