@@ -1,10 +1,12 @@
 // Device and host code of the GNN trunk's panel kernels, shared by the
-// forward (csrc/gnn_trunk_fwd.cu, row 1 of PERF.md's kernel table) and the
-// backward (csrc/gnn_trunk_bwd.cuh, under csrc/gnn_trunk_bwd.cu and
+// forwards (csrc/gnn_trunk_fwd.cu, one trunk a launch, and
+// csrc/gnn_trunk_dual_fwd.cu, the actor's and the critic's trunks in one
+// launch: rows 1 and 3 of PERF.md's kernel table) and the backwards
+// (csrc/gnn_trunk_bwd.cuh, under csrc/gnn_trunk_bwd.cu and
 // gnn_trunk_dual_bwd.cu, which recompute the forward): the parameter
 // layout, the tile geometry, the 3xTF32 tensor-core product over a tile's
-// panels, the EmbedConv forward, one conv layer's forward, and the launch
-// plan.
+// panels, the EmbedConv forward, one conv layer's forward, the forwards'
+// CTA loop over NT trunks and their launch plan, and the plan search.
 //
 // A tile is NB consecutive graphs.  Every per-graph quantity lives in a
 // panel: feature row k holds that feature for all M = E*NB (entity, graph)
@@ -533,6 +535,194 @@ __device__ __forceinline__ void conv_forward(float* sm, const PanelGeom& G, cons
   }
 }
 
+// ---------------------------------------------------------------- the forward kernels
+//
+// Rows 1 and 3 run one body, forward_ctas, over NT trunks that share one
+// adjacency (NT = 1 and 2).
+
+// The launch bound: CTAs of at most 256 threads, two an SM, so at most 128
+// registers a thread (16 warps an SM); a kernel that splits rows takes
+// CTAs of up to 512 threads, one an SM, at the same 128 registers.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdMinCtas = 2;
+constexpr int kFwdRegs = kRegsPerSm / (kFwdThreads * kFwdMinCtas);
+constexpr int kSplitThreads = 512;
+// The largest split of a row over threads (a power of two dividing W).
+constexpr int kMaxSplit = 8;
+
+// The forward's shared-memory plan, in floats, beside the panel geometry.
+struct FwdGeom : PanelGeom {
+  int xa, xb;  // the two x panels
+  __host__ __device__ FwdGeom(const Dims& d, const ParamLayout& pl, int nb, int split)
+      : PanelGeom(d, nb, split) {
+    int o = 0;
+    w = o;
+    o += round_up(imax(tc_floats(), pl.embed_size), 32);
+    const int plane = round_up(d.E * LDA, 32);
+    dm = o;
+    o += plane;
+    alpha = o;
+    o += plane;
+    xa = o;
+    o += W * LD;
+    xb = o;
+    o += W * LD;
+    // src and h_src (and with split > 1 the edge buffer) in the EmbedConv,
+    // one head's q, k, v in a conv layer
+    scr = o;
+    int embed = hsrc + W * LD;
+    if (split > 1) {
+      // a slot stride of 32 / split (mod 32): a warp's split slots and
+      // 32 / split rows fall on distinct banks
+      es = round_up(W * LD, 32) + kWarp / split;
+      ebuf = o + round_up(embed, 32);
+      embed = round_up(embed, 32) + split * es;
+    }
+    o += imax(embed, 3 * W * LD);
+    size = o;
+  }
+};
+
+// The tile's adjacency from b0 into the dm plane as masked distances (0
+// where 0 < d < max_edge_dist fails, and past the batch's end).
+__device__ __forceinline__ void load_masked_distances(float* sm, const PanelGeom& G,
+                                                      const Dims& d,
+                                                      const float* __restrict__ adj_T,
+                                                      long long B, long long b0,
+                                                      float max_edge_dist) {
+  for (int i = threadIdx.x; i < d.E * d.E * G.NB; i += blockDim.x) {
+    const int r = i / G.NB, b = i - r * G.NB;  // r = s*E + t
+    const int s = r / d.E, t = r - s * d.E;
+    const long long gb = b0 + b;
+    const float dv = gb < B ? adj_T[r * B + gb] : 0.f;
+    sm[G.dm + s * G.LDA + t * G.NB + b] = (dv > 0.f && dv < max_edge_dist) ? dv : 0.f;
+  }
+}
+
+// One trunk's pointers in a forward launch.
+struct FwdTrunk {
+  const float* src_T;   // (E*Ds, B) EmbedConv input
+  const float* params;  // blob
+  float* out;           // (E*C, B)
+};
+
+template <int NT>
+struct FwdTrunks {
+  FwdTrunk t[NT];
+};
+
+// Trunk k's pointers, by selection (an indexed read would copy the
+// kernel's parameters to local memory).
+template <int NT>
+__device__ __forceinline__ FwdTrunk trunk_of(const FwdTrunks<NT>& tr, int k) {
+  FwdTrunk io = tr.t[0];
+#pragma unroll
+  for (int i = 1; i < NT; ++i)
+    if (k == i) io = tr.t[i];
+  return io;
+}
+
+// One trunk's forward over the tile from b0 (the CTA loop's body): its
+// EmbedConv weights, src and h_src, the EmbedConv into panel xa, and the
+// conv layers from one x panel into the other, each layer's weights staged
+// in w; the last layer's output goes from registers to `out`.  With
+// `first` it also masks the tile's distances into the dm plane.  It starts
+// with the barrier that ends the previous trunk's last layer, which read
+// w, the x panels and scr.  The trunk's pointers come as __restrict__
+// arguments, as a one-trunk kernel's parameters were.
+template <int S>
+__device__ __forceinline__ void trunk_tile_forward(float* sm, const FwdGeom& G, const Dims& d,
+                                                   const ParamLayout& pl,
+                                                   const float* __restrict__ src_T,
+                                                   const float* __restrict__ params,
+                                                   float* __restrict__ out,
+                                                   const float* __restrict__ adj_T, long long B,
+                                                   long long b0, bool first, float max_edge_dist,
+                                                   int embed_relu, int gnn_relu, bool valid,
+                                                   int m, int e, int b, int j, unsigned rows) {
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  float* w = sm + G.w;
+  __syncthreads();
+  for (int i = tid; i < pl.embed_size; i += blockDim.x) cp_async4(w + i, params + i);
+  if (first) load_masked_distances(sm, G, d, adj_T, B, b0, max_edge_dist);
+  cp_async_wait();
+  load_src_hsrc<S>(sm, G, d, pl, src_T, B, b0, valid, m, j);
+  embed_forward<S>(sm, G, d, pl, embed_relu, valid, m, b, sm + G.xa, j, rows);
+  for (int l = 0; l < d.n_tc; ++l) {
+    __syncthreads();
+    stage_tc<true>(w, G, pl, params, l);
+    cp_async_wait();
+    __syncthreads();
+    const float* X = sm + ((l & 1) ? G.xb : G.xa);
+    float* Y = sm + ((l & 1) ? G.xa : G.xb);
+    float acc[W / S];
+    conv_forward<false, S>(sm, G, d, w, X, nullptr, valid, m, b, warp, lane, acc, j, rows);
+    if (valid) {
+      if (l + 1 < d.n_tc) {
+#pragma unroll
+        for (int i = 0; i < W / S; ++i) Y[chan<S>(j, i) * G.LD + m] = act(acc[i], gnn_relu);
+      } else {
+        const long long gb = b0 + b;
+        if (gb < B) {
+#pragma unroll
+          for (int i = 0; i < W / S; ++i)
+            out[(long long)(e * W + chan<S>(j, i)) * B + gb] = act(acc[i], gnn_relu);
+        }
+      }
+    }
+  }
+}
+
+// The CTA's loop over its tiles, for NT trunks on one adjacency: tile i of
+// the grid's CTA c is graphs (c + i * CTAs) * NB ...  With the trunks in
+// turn (the plan's grid_trunks = 1) the CTA masks each tile's distances
+// once and runs the NT trunks on it one after the other; with the trunk on
+// the grid (grid_trunks = NT, the plan making the CTAs a multiple of NT)
+// CTA c runs trunk c % NT of tiles c / NT, c / NT + CTAs / NT, ...  One
+// loop steps over (tile, trunk) pairs, as row 1's steps over tiles: with a
+// loop over trunks inside the loop over tiles the compiler kept the conv
+// layers' shared-memory addresses live through the EmbedConv, whose
+// accumulators then spilled, and the launch took 2-5% longer than two
+// one-trunk launches (PERF.md §6).  Only the first trunk of a tile writes
+// the dm plane.  Each trunk runs the code of a one-trunk launch and no
+// graph's result depends on its tile, NB or S, so each trunk's output
+// equals a launch of it alone, bit for bit.  Thread tid is thread j = tid
+// % S of row m = tid / S.
+template <int S, int NT>
+__device__ __forceinline__ void forward_ctas(const FwdTrunks<NT>& tr,
+                                             const float* __restrict__ adj_T, long long B,
+                                             const Dims& d, float max_edge_dist, int embed_relu,
+                                             int gnn_relu, int nb, int grid_trunks) {
+  extern __shared__ float sm[];
+  const ParamLayout pl(d);
+  const FwdGeom G(d, pl, nb, S);
+  const int m = threadIdx.x / S, j = threadIdx.x - m * S;
+  const bool valid = m < G.M;
+  const int e = valid ? m / nb : 0, b = valid ? m - e * nb : 0;
+  // the lanes of this warp that own a row
+  const unsigned rows = __ballot_sync(kFull, valid);
+  if constexpr (NT == 1) {
+    for (long long b0 = (long long)blockIdx.x * nb; b0 < B; b0 += (long long)gridDim.x * nb)
+      trunk_tile_forward<S>(sm, G, d, pl, tr.t[0].src_T, tr.t[0].params, tr.t[0].out, adj_T, B,
+                            b0, true, max_edge_dist, embed_relu, gnn_relu, valid, m, e, b, j,
+                            rows);
+  } else {
+    const bool on_grid = grid_trunks > 1;
+    const int ctas = on_grid ? gridDim.x / NT : gridDim.x;
+    const int k0 = on_grid ? blockIdx.x % NT : 0, k1 = on_grid ? k0 + 1 : NT;
+    int k = k0;
+    for (long long b0 = (long long)(on_grid ? blockIdx.x / NT : blockIdx.x) * nb; b0 < B;) {
+      const FwdTrunk io = trunk_of(tr, k);
+      trunk_tile_forward<S>(sm, G, d, pl, io.src_T, io.params, io.out, adj_T, B, b0, k == k0,
+                            max_edge_dist, embed_relu, gnn_relu, valid, m, e, b, j, rows);
+      if (++k == k1) {
+        k = k0;
+        b0 += (long long)ctas * nb;
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 // A device's SM count and shared memory per SM and reserved per CTA, read
@@ -592,10 +782,11 @@ int allow_smem(Kernel kernel, int dev, int smem) {
   return 0;
 }
 
-// The launch shape: graphs per CTA, threads, dynamic shared memory, and the
-// CTAs an SM holds by shared memory, threads and registers.
+// The launch shape: graphs per CTA, threads, dynamic shared memory, the
+// CTAs an SM holds by shared memory, threads and registers, threads a row,
+// and (the forwards') the trunks on the grid.
 struct Plan {
-  int nb = 0, threads = 0, smem = 0, per_sm = 0, split = 1;
+  int nb = 0, threads = 0, smem = 0, per_sm = 0, split = 1, grid_trunks = 1;
 };
 
 int check_dims(const Dims& d, int F1, int C) {
@@ -656,6 +847,66 @@ int kernel_attributes(Kernel kernel, const Plan& plan, int* threads, int* regs,
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   *planned_per_sm = plan.per_sm;
+  return 0;
+}
+
+// The plan of a forward launch of NT trunks over B graphs and its grid;
+// kernel_of(split) is the launch's kernel.  NB is whatever puts the most
+// graphs on an SM (by shared memory, threads and registers at the launch
+// bound).  Each CTA runs all NT trunks of its tiles in turn, unless the
+// trunk on the grid takes fewer rounds: ceil(NT tiles / CTAs) against NT
+// ceil(tiles / CTAs) (at 12,288 graphs and E = 6, 3 against 4).  Where the
+// batch has fewer such tiles than the card holds CTAs, one tile's latency,
+// not the card's throughput, sets the time: the plan then takes tiles of
+// about B / SMs graphs, puts each of a tile's NT trunks on a CTA of its own
+// (NT CTAs an SM share its 512 threads at 128 registers), and splits each
+// row over the most threads S (8, 4 or 2) that fit.  All plans give the
+// same bits (forward_ctas).  The grid is persistent: all the CTAs the card
+// holds at once, or one a work item (a tile, or a trunk of one) where
+// there are fewer items.
+template <class KernelOf>
+int forward_plan(KernelOf kernel_of, int NT, const Dims& d, int F1, int C, long long B,
+                 Plan* plan, int* grid) {
+  int rc = check_dims(d, F1, C);
+  if (rc != 0) return rc;
+  if (B < 1) return -8;
+  int dev = 0;
+  DeviceInfo di;
+  if ((rc = device_info(&dev, &di)) != 0) return rc;
+  // no tile of more than kFwdThreads / (E * split) graphs fits a CTA
+  if ((rc = best_plan<FwdGeom>(d, di, imax(kFwdThreads / d.E, 1), kFwdThreads, kFwdRegs, plan,
+                               1)) != 0)
+    return rc;
+  if ((B + plan->nb - 1) / plan->nb < (long long)di.sms * plan->per_sm) {
+    const long long per_sm_graphs = (B + di.sms - 1) / di.sms;
+    const int max_threads = kSplitThreads / NT;
+    const ParamLayout pl(d);
+    Plan p;
+    for (int split = kMaxSplit; split > 1 && p.per_sm == 0; split /= 2)
+      if (per_sm_graphs * d.E * split <= max_threads)
+        p = plan_for<FwdGeom>(d, pl, di, (int)per_sm_graphs, max_threads, kFwdRegs, split);
+    if (p.per_sm == 0) {
+      const int nb = (int)(per_sm_graphs < plan->nb ? per_sm_graphs : plan->nb);
+      p = plan_for<FwdGeom>(d, pl, di, nb, kFwdThreads, kFwdRegs, 1);
+    }
+    p.grid_trunks = NT;
+    *plan = p;
+  } else if (NT > 1) {
+    // a CTA runs ceil(tiles / CTAs) tiles of NT trunks in turn, or
+    // ceil(NT tiles / CTAs) trunks of tiles on the grid
+    const long long tiles = (B + plan->nb - 1) / plan->nb;
+    const long long ctas = (long long)di.sms * plan->per_sm;
+    const long long grid_ctas = ctas - ctas % NT;
+    const long long rounds_in_turn = NT * ((tiles + ctas - 1) / ctas);
+    if (grid_ctas > 0 && (NT * tiles + grid_ctas - 1) / grid_ctas < rounds_in_turn)
+      plan->grid_trunks = NT;
+  }
+  if ((rc = allow_smem(kernel_of(plan->split), dev, plan->smem)) != 0) return rc;
+  // with the trunk on the grid, a multiple of NT CTAs (forward_ctas)
+  const long long items = (B + plan->nb - 1) / plan->nb * plan->grid_trunks;
+  long long ctas = (long long)di.sms * plan->per_sm;
+  ctas = ctas < plan->grid_trunks ? plan->grid_trunks : ctas - ctas % plan->grid_trunks;
+  *grid = (int)(ctas < items ? ctas : items);
   return 0;
 }
 

@@ -25,10 +25,12 @@ Both wrappers run the plain version for tensors on the CPU and the kernel
 for tensors on the card; on the card they launch the kernel or raise.  The
 kernels are compiled with ``nvcc`` at first use, each from its source in the
 package, into ``build/kernels/`` at the repository root, under a name that
-hashes the source and every header it reaches (``source_tag``); the single
-trunk's forward and backward share the panel code of
-``csrc/gnn_trunk_panel.cuh``.  ``build_all`` also builds the v2
-formulation's kernel of ``ops/gnn_trunk_v2.py``.
+hashes the source and every header it reaches (``source_tag``).  The four
+trunk kernels run on the panel code of ``csrc/gnn_trunk_panel.cuh``: the
+single and dual forwards one body (each trunk of a dual launch equals a
+single launch bit for bit), the backwards also ``csrc/gnn_trunk_bwd.cuh``.
+``build_all`` also builds the v2 formulation's kernel of
+``ops/gnn_trunk_v2.py``.
 """
 from __future__ import annotations
 
@@ -481,7 +483,8 @@ _SIGNATURES = {
     },
     "gnn_trunk_dual_fwd": {
         "gnn_trunk_dual_fwd": [_p] * 7 + [_ll] + [_i] * 7 + [_f, _i, _i, _i, _p],
-        "gnn_trunk_dual_fwd_config": [_i] * 7 + [_ip] * 3,
+        "gnn_trunk_dual_fwd_config": [_i] * 7 + [_ll] + [_ip] * 6,
+        "gnn_trunk_dual_fwd_attributes": [_i] * 7 + [_ll] + [_ip] * 5,
     },
     "gnn_trunk_dual_bwd": {
         "gnn_trunk_dual_bwd": [_p] * 12 + [_ll] + [_i] * 7 + [_f] + [_i] * 4 + [_p],
@@ -548,14 +551,19 @@ def backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
             "ctas": grid.value}
 
 
-def dual_kernel_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n) -> dict:
-    """Graphs per CTA, dynamic shared memory bytes and parameter floats (of
-    one trunk) the dual forward kernel uses for these dimensions."""
-    g, smem, npar = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+def dual_kernel_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
+    """The dual forward kernel's plan for a batch of B graphs, as
+    :func:`kernel_config` gives row 1's (parameter floats of one trunk), and
+    ``trunk_on_grid``: whether each trunk of a tile is a CTA of its own (the
+    plan's choice at small batches) or a CTA runs both in turn."""
+    out = [ctypes.c_int() for _ in range(6)]
     _check_rc("gnn_trunk_dual_fwd", _library("gnn_trunk_dual_fwd").gnn_trunk_dual_fwd_config(
-        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n,
-        ctypes.byref(g), ctypes.byref(smem), ctypes.byref(npar)))
-    return {"graphs_per_cta": g.value, "smem_bytes": smem.value, "n_params": npar.value}
+        E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B, *(ctypes.byref(o) for o in out)))
+    keys = ("graphs_per_cta", "threads_per_row", "smem_bytes", "n_params", "ctas",
+            "trunk_on_grid")
+    conf = dict(zip(keys, (o.value for o in out)))
+    conf["trunk_on_grid"] = bool(conf["trunk_on_grid"])
+    return conf
 
 
 def dual_backward_config(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
@@ -584,13 +592,15 @@ def backward_attributes(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, dual=False)
     return dict(zip(keys, (o.value for o in out)))
 
 
-def forward_attributes(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B) -> dict:
-    """What the compiler and the card make of the forward kernel under its
-    plan for a batch of B graphs, as :func:`backward_attributes` gives them:
-    threads a CTA, registers and local memory bytes a thread, the CTAs an SM
-    holds and the CTAs an SM the plan counts."""
+def forward_attributes(E, Ds, H, F1, C, embed_layer_n, gnn_layer_n, B, dual=False) -> dict:
+    """What the compiler and the card make of the forward kernel (``dual``:
+    the dual forward) under its plan for a batch of B graphs, as
+    :func:`backward_attributes` gives them: threads a CTA, registers and
+    local memory bytes a thread, the CTAs an SM holds and the CTAs an SM the
+    plan counts."""
+    name = "gnn_trunk_dual_fwd" if dual else "gnn_trunk_fwd"
     out = [ctypes.c_int() for _ in range(5)]
-    _check_rc("gnn_trunk_fwd", _library("gnn_trunk_fwd").gnn_trunk_fwd_attributes(
+    _check_rc(name, getattr(_library(name), f"{name}_attributes")(
         E, Ds, H, F1, C, embed_layer_n, 1 + gnn_layer_n, B, *(ctypes.byref(o) for o in out)))
     keys = ("threads", "registers", "local_bytes", "ctas_per_sm", "planned_ctas_per_sm")
     return dict(zip(keys, (o.value for o in out)))

@@ -155,7 +155,7 @@ def test_plain_trunk_matches_pallas_kernel():
 KERNEL_HEADERS = {
     "gnn_trunk_fwd": ["gnn_trunk_panel.cuh"],
     "gnn_trunk_bwd": ["gnn_trunk_panel.cuh", "gnn_trunk_bwd.cuh"],
-    "gnn_trunk_dual_fwd": ["gnn_trunk_fwd.cuh"],
+    "gnn_trunk_dual_fwd": ["gnn_trunk_panel.cuh"],
     "gnn_trunk_dual_bwd": ["gnn_trunk_panel.cuh", "gnn_trunk_bwd.cuh"],
     "gnn_forward_v2": [],
 }
