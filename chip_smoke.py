@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's july rollout, evaluation, PPO training, train
-CLI and eval CLI on one CUDA card.
+CLI and eval CLI, the shipped checkpoints of the july and the exit-gated
+scenarios, and a warm-started gated training run on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,14 +14,18 @@ against the trunk forward kernel, bit for bit), runs ``Runner.collect`` at
 1024 envs x 25 steps with 15 PPO epochs, both trunks through
 ``nets.gnn_transposed_apply_dual`` at the update's shape, ``make_gnn_forward_v2``,
 the train CLI (``cli.train.main``, three flagship episodes, a checkpoint
-restore and a resume), the shipped july checkpoint
-(``model_weights_torch/july/unicycle``) under the JAX package's batched
-evaluation, held to its JAX numbers (``jax_eval.json``), and the eval CLI
-(``cli.eval.main``) on it, all at the default model's full width, and
-checks that every GNN trunk forward and backward of those paths went
-through the kernels.  Prints one JSON line per phase (device, build,
-kernel, backward, dual, v2, rollout, eval, train, cli, checkpoint,
-eval_cli, kernels), then the card's name and power limit as
+restore and a resume), the shipped checkpoints (``model_weights_torch/``:
+july, rot_inv, three_phase, three_phase at 10 agents, and the two 5-agent
+two_phase ones) under the JAX package's batched evaluation, each held to
+its JAX numbers (``jax_eval*.json``), the eval CLI (``cli.eval.main``) on
+the july one, and the train CLI on three_phase warm-started from the
+rot_inv checkpoint, all at the models' full width, and checks that every
+GNN trunk forward and backward of those paths went through the kernels.
+The forward and backward kernels are also held at the gated graphs' width
+(7 node features, Ds = 8; july's give 9).  Prints one JSON line per phase
+(device, build, kernel, backward, dual, v2, rollout, eval, train, cli,
+checkpoint (one for each evaluation), eval_cli, gated_train, kernels), then
+the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
 so the script exits non-zero without that line.  Without a CUDA device, or
@@ -107,10 +112,60 @@ EVAL_SEEDS, EVAL_BATCH = 4, 256
 # sides about 0.046; the bar of 0.23 is five of those.
 EVAL_BARS = {"success_rate": 0.02, "all_success_rate": 0.04, "gate_success_rate": 0.02,
              "num_agent_collisions": 0.23}
+# The shipped gated checkpoints, converted the same way, with the JAX
+# package's evaluations of them: (label, directory, JAX file, metrics held).
+# rot_inv and three_phase are held on distance-to-goal success; the
+# two_phase checkpoints on gate success, since their distance-based success
+# reads 0 by design (scripts/two_phase_eval.py:4-7).  three_phase is also
+# evaluated at 10 agents and 10 landmarks (E = 20, jax_eval_10a.json).
+WEIGHTS = Path("model_weights_torch")
+DIST_HELD = ("success_rate", "all_success_rate", "num_agent_collisions")
+GATE_HELD = ("gate_success_rate", "all_gate_success_rate", "num_agent_collisions")
+GATED_EVALS = [
+    ("rot_inv", WEIGHTS / "rot_inv" / "airtaxi", "jax_eval.json", DIST_HELD),
+    ("three_phase", WEIGHTS / "three_phase" / "airtaxi", "jax_eval.json", DIST_HELD),
+    ("three_phase_10a", WEIGHTS / "three_phase" / "airtaxi", "jax_eval_10a.json", DIST_HELD),
+    ("two_phase_5a", WEIGHTS / "two_phase_5a" / "airtaxi", "jax_eval.json", GATE_HELD),
+    ("two_phase_5a_low_collision", WEIGHTS / "two_phase_5a" / "airtaxi_low_collision",
+     "jax_eval.json", GATE_HELD),
+]
+# the gated graphs' node features (7, so Ds = 8 where july's 8 give 9) and
+# the gated training phase's update batch: 64 envs x 75 steps x 3 agents
+GATED_NODE_FEAT = 7
+GATED_TRAIN_ENVS, GATED_STEPS, GATED_EPISODES = 64, 75, 2
+# the three_phase recipe's flags the gated training phase takes from its
+# config.json (config.yaml's), besides --use_popart
+GATED_RECIPE_KEYS = ("scenario_name", "dynamics_type", "num_agents", "num_landmarks",
+                     "episode_length", "n_rollout_threads", "total_actions", "ppo_epoch",
+                     "num_mini_batch", "data_chunk_length", "collision_rew", "goal_rew",
+                     "formation_rew", "fair_rew", "world_size", "lr", "critic_lr",
+                     "entropy_coef", "seed")
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
                     "spacing_violations"]
+
+
+def checkpoint_bars(jax_ref: dict, held, agents: int) -> dict:
+    """The bars of a gated checkpoint's evaluation against the JAX package's
+    (fixed in CHANGES.md before its first card run): five standard
+    deviations of the difference of the two sides' 4-seed means.  A rate's
+    one-side deviation is binomial at the JAX mean over the agent-episodes
+    (per agent) or the episodes (all agents) of the protocol, and the bar is
+    never tighter than the july bars, 0.02 and 0.04.  Collisions an episode:
+    the JAX package's four seed means spread with a sample standard
+    deviation s, so a 4-seed mean has s / 2."""
+    episodes = EVAL_SEEDS * EVAL_BATCH
+    bars = {}
+    for k in held:
+        if k == "num_agent_collisions":
+            side = statistics.stdev(r[k] for r in jax_ref["rows"]) / EVAL_SEEDS ** 0.5
+            bars[k] = 5 * 2 ** 0.5 * side
+        else:
+            p, n = jax_ref["mean"][k], episodes if k.startswith("all_") else episodes * agents
+            floor = 0.04 if k.startswith("all_") else 0.02
+            bars[k] = max(floor, 5 * 2 ** 0.5 * (p * (1 - p) / n) ** 0.5)
+    return bars
 
 
 def emit(obj) -> None:
@@ -276,8 +331,8 @@ def main() -> int:
         adj_T = adj.permute(1, 2, 0).reshape(E * E, B).contiguous()
         return src_T, adj_T
 
-    def random_graphs(B, E, max_edge, gen):
-        node = torch.randn((B, E, 8), generator=gen, device=dev)
+    def random_graphs(B, E, max_edge, gen, F=8):
+        node = torch.randn((B, E, F), generator=gen, device=dev)
         node[..., -1] = torch.randint(0, 2, (B, E), generator=gen, device=dev).float()
         a = torch.rand((B, E, E), generator=gen, device=dev) * 2 * max_edge
         adj = (a + a.transpose(1, 2)) / 2
@@ -328,6 +383,25 @@ def main() -> int:
         e10k_node, e10k_adj = random_graphs(4096, 10, cfg.max_edge_dist,
                                             torch.Generator(device=dev).manual_seed(SEED + 9))
         cases.append(("E=10, relu", wide_gnn, cfg, e10k_node, e10k_adj, KERNEL_TOL))
+        # the gated scenarios' graphs: 7 node features, so Ds = 8 where every
+        # case above has july's Ds = 9; tanh in the embedding and the GNN, as
+        # the shipped gated checkpoints; weights of seed 0 of a gated-width
+        # GNNBase; E = 6 at the gated training update's 14,400 graphs, E = 10
+        # at the 5-agent two_phase evaluation's 1,280, E = 20 at the 10-agent
+        # three_phase evaluation's 2,560 (their own generator)
+        gcfg = ModelConfig(max_edge_dist=cfg.max_edge_dist, embed_use_relu=False,
+                           gnn_use_relu=False)
+        gated_gnn = nets.GNNBase(gcfg, GATED_NODE_FEAT, "node")
+        gated_gnn.init_(torch.Generator().manual_seed(SEED))
+        gated_gnn = gated_gnn.to(dev)
+        ggen = torch.Generator(device=dev).manual_seed(SEED + 10)
+        gated_graphs = {
+            E: random_graphs(B, E, cfg.max_edge_dist, ggen, GATED_NODE_FEAT)
+            for E, B in ((6, GATED_TRAIN_ENVS * GATED_STEPS * 3), (10, EVAL_BATCH * 5),
+                         (20, EVAL_BATCH * 10))}
+        for E, (nd, ad) in gated_graphs.items():
+            cases.append((f"gated E={E}, tanh, Ds=8", gated_gnn, gcfg, nd, ad,
+                          WIDE_TOL if E == 20 else KERNEL_TOL))
 
         def forward_plan(c, E, Ds, B):
             """The forward kernel's plan for B graphs and what the card makes
@@ -372,13 +446,26 @@ def main() -> int:
             ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
                   and f64_ok and identical and all(r["equal"] for r in prefix or ())
                   and conf["ctas_per_sm"] >= conf["planned_ctas_per_sm"])
-            checks.append({"case": name, "E": E, "B": B, "max_abs_err": err,
+            checks.append({"case": name, "E": E, "Ds": args[1], "B": B, "max_abs_err": err,
                            **tol, **f64, "two_launches_identical": identical,
                            "prefix_alone": prefix, "ok": ok, **conf})
             if not ok:
                 emit({"phase": "kernel", "checks": checks})
                 raise AssertionError(f"kernel disagrees with the plain version: {name}")
             max_err = max(max_err, err)
+            if name.startswith("gated"):
+                # the gated shapes' device ms beside their bound and the plain version's
+                kp_g, o = gnn.kernel_params(), torch.empty_like(got)
+                edges = int(((adj_T > 0) & (adj_T < c.max_edge_dist)).sum().item())
+                w = gnn_trunk.trunk_work(E, args[1], args[2], kp_g.F1, args[3], c.embed_layer_n,
+                                         c.gnn_layer_n, B, edges, kp_g.blob.numel())
+                b_ms, b_by = bound(w)
+                checks[-1].update(
+                    ms=time_ms(torch, lambda: gnn_trunk.launch_kernel(
+                        *args, kp_g, src_T, adj_T, o), hide_host=True),
+                    plain_ms=time_ms(torch, lambda: gnn_trunk.gnn_trunk_forward_plain(
+                        *args, flat, src_T, adj_T), reps=5, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by, edges=edges)
 
         # timing at the rollout's launch shape (4096 envs x 3 agents, E = 6)
         gnn = params.actor.gnn_base
@@ -491,6 +578,8 @@ def main() -> int:
             ("edgeless graphs, tanh", tanh_gnn, tcfg, ragged_node, edgeless),
             ("E=10, tanh", wide_tanh, tcfg, mid_node, mid_adj),
             ("E=20, tanh", wide_tanh, tcfg, wide_node, wide_adj),
+            ("gated E=6, tanh, Ds=8", gated_gnn, gcfg, *gated_graphs[6]),
+            ("gated E=10, tanh, Ds=8", gated_gnn, gcfg, *gated_graphs[10]),
         ]
         for name, gnn, c, nd, ad in bwd_cases:
             src_T, adj_T = transposed(gnn, nd, ad)
@@ -539,13 +628,27 @@ def main() -> int:
             ok = (finite and identical and all(r["ok"] for r in rows)
                   and conf["ctas_per_sm"] >= conf["planned_ctas_per_sm"])
             worst = max(rows, key=lambda r: r["max_abs_err"] / r["bar"])
-            bwd_checks.append({"case": name, "E": E, "B": B, "max_abs_err": err, "finite": finite,
+            bwd_checks.append({"case": name, "E": E, "Ds": Ds, "B": B, "max_abs_err": err,
+                               "finite": finite,
                                "two_launches_identical": identical,
                                "ok": ok, "relu_graphs_set_aside": int(aside.sum().item()),
                                "all_graphs_kept": kept,
                                "graphs_off_f64": graphs_off_f64,
                                "worst_leaf": rows.index(worst), **worst, **conf,
                                "leaves": rows if not ok else len(rows)})
+            if ok and name.startswith("gated"):
+                # the gated shapes' device ms beside their bound
+                bufs = (torch.empty_like(src_T), torch.empty_like(adj_T), torch.empty_like(kp.blob),
+                        torch.empty((conf["ctas"], kp.blob.numel()), device=dev))
+                edges = int(((adj_T > 0) & (adj_T < c.max_edge_dist)).sum().item())
+                bw = gnn_trunk.trunk_bwd_work(E, Ds, args[2], kp.F1, args[3], c.embed_layer_n,
+                                              c.gnn_layer_n, B, edges, kp.blob.numel())
+                b_ms, b_by = bound(bw)
+                bwd_checks[-1].update(
+                    ms=time_ms(torch, lambda: gnn_trunk.launch_backward_kernel(
+                        *args, kp, src_T, adj_T, g, *bufs), reps=10, hide_host=True),
+                    bound_ms=b_ms, bound_by=b_by, edges=edges)
+                del bufs
             del first, got, want, exact, dflat, ds, da
             torch.cuda.empty_cache()
             if not ok:
@@ -1331,78 +1434,140 @@ def main() -> int:
           "saved": saved_files})
 
     # ---------------------------------------------------------------- checkpoint
-    # the shipped july checkpoint (model_weights/july/unicycle ckpt_1561,
-    # converted by scripts/orbax_to_torch.py) under the JAX package's batched
-    # protocol, held to the JAX package's evaluation of it (jax_eval.json,
-    # made on the CPU with the same flags); its trained trunks through v2
-    # and through the trunk forward kernel
+    # every shipped checkpoint (model_weights/, converted by
+    # scripts/orbax_to_torch.py) under the JAX package's batched protocol,
+    # held to the JAX package's evaluation of it (jax_eval*.json, made on the
+    # CPU with the same flags): july, then the gated ones; each one's
+    # trained trunks through v2 and through the trunk forward kernel
     from contracts_marl_aam_corridors_tpu_torch.tools.eval_batched import run_side
     from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import arch_act_flags
 
-    ckpt_dir = ROOT / JULY_CKPT
-    with open(ckpt_dir / "jax_eval.json") as f:
-        jax_ref = json.load(f)
-    act_flags = arch_act_flags(str(ckpt_dir))
-    ck_args = parse_all(jax_ref["argv"])
-    for k, v in act_flags.items():  # the run's activation flags, as the JAX side took them
-        setattr(ck_args, k, v)
-    ck_env, _, ck_trainer, ck_runner = cli_train.build(ck_args)
-    ck_ts, ck_episode = restore_checkpoint(str(ckpt_dir), ck_trainer.init_state(SEED))
-    for f in all_counters:
-        f.launches = 0
-    t0 = time.perf_counter()
-    ck_row = run_side(ck_ts, ck_runner, n_eval=EVAL_BATCH, seeds=EVAL_SEEDS)
-    torch.cuda.synchronize()
-    ck_seconds = time.perf_counter() - t0
-    ck_launches = [f.launches for f in all_counters]
-    want = [EVAL_SEEDS * ck_env.episode_length, 0, 0, 0, 0]
-    if ck_launches != want:
-        raise AssertionError(f"the checkpoint's evaluation launched (fwd, bwd, dual fwd, dual "
-                             f"bwd, v2) {ck_launches}, expected {want}")
-    if len(jax_ref["rows"]) != EVAL_SEEDS or jax_ref["rows"][0]["seed"] != 100:
-        raise AssertionError("jax_eval.json holds another protocol")
-    vs_jax = {k: {"port": ck_row[k], "jax": jax_ref["mean"][k],
-                  "diff": ck_row[k] - jax_ref["mean"][k], "bar": EVAL_BARS.get(k)}
-              for k in ("success_rate", "all_success_rate", "gate_success_rate",
-                        "num_agent_collisions")}
-    failed = [k for k, v in vs_jax.items() if v["bar"] is not None and abs(v["diff"]) > v["bar"]]
-
-    # the trained trunks on the graphs of the first eval step (seed 100)
-    ck_trunks = []
-    with torch.no_grad():
-        _, ts0 = env_mod.reset(ck_env, EVAL_BATCH, torch.Generator(device=dev).manual_seed(100),
-                               dev)
-        B, N, E = EVAL_BATCH, ck_env.num_agents, ck_env.num_entities
-        nd = ts0.node_obs.reshape(B * N, E, -1)
-        ad = ts0.adj[:, None].expand(B, N, E, E).reshape(B * N, E, E)
-        for side in ("actor", "critic"):
-            gnn = getattr(ck_ts.params, side).gnn_base
-            c = gnn.cfg
-            src_T, adj_T = transposed(gnn, nd, ad)
-            args = trunk_args(c, E, src_T.shape[0] // E)
-            got = gnn_trunk_v2.gnn_forward_v2(*args, v2_flat(gnn, c, E), src_T, adj_T)
-            row1 = gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(), src_T, adj_T)
-            exact = gnn_trunk.gnn_trunk_forward_plain(
-                *args, nets._flatten_gnn_params(gnn, c.embed_layer_n, c.gnn_layer_n), src_T,
-                adj_T, compute_dtype=torch.float64)
+    def eval_step_cost(runner, ts_):
+        """One evaluation step's kernels, device ms and wall ms (the policy's
+        act and the env step, the host's loop included): the difference of
+        2- and 4-step evaluations of the same batch, profiled for the
+        kernels and unprofiled for the wall time."""
+        runs = {}
+        for L in (2, 4):
+            r = dataclasses.replace(runner, episode_length=L, env_params=dataclasses.replace(
+                runner.env_params, episode_length=L))
+            r.eval_episode(ts_, 100, EVAL_BATCH)
             torch.cuda.synchronize()
-            f64, _ = forward_vs_f64(got, row1, exact, False)
-            # v2 runs row 1's body on the same staged floats: equal bit for bit
-            ok = bool(torch.isfinite(got).all()) and torch.equal(got, row1)
-            ck_trunks.append({"trunk": side, "B": B * N, "E": E,
-                              "acts": [c.embed_use_relu, c.gnn_use_relu],
-                              "v2_vs_row1_max_abs_err": (got - row1).abs().max().item(),
-                              "v2_vs_f64": f64["kernel_vs_f64"],
-                              "row1_vs_f64": f64["plain_vs_f64"], "ok": ok})
-    emit({"phase": "checkpoint", "checkpoint": str(JULY_CKPT), "episode": ck_episode,
-          "argv": jax_ref["argv"], "act_flags": act_flags,
-          "envs": EVAL_BATCH, "seeds": EVAL_SEEDS, "seconds": ck_seconds, "port": ck_row,
-          "vs_jax": vs_jax, "launches": ck_launches, "trunks": ck_trunks,
-          "jax_versions": jax_ref["versions"]})
-    if failed:
-        raise AssertionError(f"the port's evaluation of the checkpoint misses the bars: {failed}")
-    if not all(t["ok"] for t in ck_trunks):
-        raise AssertionError("the trained trunks differ through v2 and the trunk forward kernel")
+            t0 = time.perf_counter()
+            r.eval_episode(ts_, 100, EVAL_BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAUSE_S)
+            with torch.profiler.profile(activities=acts) as prof:
+                r.eval_episode(ts_, 100, EVAL_BATCH)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAUSE_S)
+            evts = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            runs[L] = (sum(e.count for e in evts),
+                       sum(e.self_device_time_total for e in evts) / 1e3, wall * 1e3)
+        return {"kernels_per_step": (runs[4][0] - runs[2][0]) / 2,
+                "device_ms_per_step": (runs[4][1] - runs[2][1]) / 2,
+                "wall_ms_per_step": (runs[4][2] - runs[2][2]) / 2}
+
+    def evaluate_checkpoint(label, rel_dir, jax_file, held, bars):
+        """The checkpoint's 4 x 256-episode evaluation, held to its JAX
+        file at ``bars``; its launches, its trained trunks (v2 against row
+        1, bit for bit), a row-1 call's device ms at its evaluation's shape
+        and an evaluation step's cost."""
+        ckpt_dir = ROOT / rel_dir
+        with open(ckpt_dir / jax_file) as f:
+            jax_ref = json.load(f)
+        act_flags = arch_act_flags(str(ckpt_dir))
+        ck_args = parse_all(jax_ref["argv"])
+        for k, v in act_flags.items():  # the run's activation flags, as the JAX side took them
+            setattr(ck_args, k, v)
+        ck_env, _, ck_trainer, ck_runner = cli_train.build(ck_args)
+        ck_ts, ck_episode = restore_checkpoint(str(ckpt_dir), ck_trainer.init_state(SEED))
+        if bars is None:
+            bars = checkpoint_bars(jax_ref, held, ck_env.num_agents)
+        for f in all_counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        ck_row = run_side(ck_ts, ck_runner, n_eval=EVAL_BATCH, seeds=EVAL_SEEDS)
+        torch.cuda.synchronize()
+        ck_seconds = time.perf_counter() - t0
+        ck_launches = [f.launches for f in all_counters]
+        want = [EVAL_SEEDS * ck_env.episode_length, 0, 0, 0, 0]
+        if ck_launches != want:
+            raise AssertionError(f"{label}: the evaluation launched (fwd, bwd, dual fwd, dual "
+                                 f"bwd, v2) {ck_launches}, expected {want}")
+        if len(jax_ref["rows"]) != EVAL_SEEDS or jax_ref["rows"][0]["seed"] != 100:
+            raise AssertionError(f"{label}: {jax_file} holds another protocol")
+        vs_jax = {k: {"port": ck_row[k], "jax": jax_ref["mean"][k],
+                      "diff": ck_row[k] - jax_ref["mean"][k], "bar": bars[k]} for k in held}
+        failed = [k for k, v in vs_jax.items() if abs(v["diff"]) > v["bar"]]
+
+        # the trained trunks on the graphs of the first eval step (seed 100)
+        ck_trunks = []
+        with torch.no_grad():
+            _, ts0 = env_mod.reset(ck_env, EVAL_BATCH,
+                                   torch.Generator(device=dev).manual_seed(100), dev)
+            B, N, E = EVAL_BATCH, ck_env.num_agents, ck_env.num_entities
+            nd = ts0.node_obs.reshape(B * N, E, -1)
+            ad = ts0.adj[:, None].expand(B, N, E, E).reshape(B * N, E, E)
+            for side in ("actor", "critic"):
+                gnn = getattr(ck_ts.params, side).gnn_base
+                c = gnn.cfg
+                src_T, adj_T = transposed(gnn, nd, ad)
+                args = trunk_args(c, E, src_T.shape[0] // E)
+                got = gnn_trunk_v2.gnn_forward_v2(*args, v2_flat(gnn, c, E), src_T, adj_T)
+                row1 = gnn_trunk.gnn_trunk_forward(*args, gnn.kernel_params(), src_T, adj_T)
+                exact = gnn_trunk.gnn_trunk_forward_plain(
+                    *args, nets._flatten_gnn_params(gnn, c.embed_layer_n, c.gnn_layer_n),
+                    src_T, adj_T, compute_dtype=torch.float64)
+                torch.cuda.synchronize()
+                f64, _ = forward_vs_f64(got, row1, exact, E >= 20)
+                # v2 runs row 1's body on the same staged floats: equal bit for bit
+                ok = bool(torch.isfinite(got).all()) and torch.equal(got, row1)
+                trunk = {"trunk": side, "B": B * N, "E": E, "Ds": args[1],
+                         "acts": [c.embed_use_relu, c.gnn_use_relu],
+                         "v2_vs_row1_max_abs_err": (got - row1).abs().max().item(),
+                         "v2_vs_f64": f64["kernel_vs_f64"],
+                         "row1_vs_f64": f64["plain_vs_f64"], "ok": ok}
+                if side == "actor":
+                    kp = gnn.kernel_params()
+                    o = torch.empty((E * c.gnn_hidden_size, B * N), device=dev)
+                    trunk["row1_ms"] = time_ms(torch, lambda: gnn_trunk.launch_kernel(
+                        *args, kp, src_T, adj_T, o), hide_host=True)
+                    v2_in = v2_flat(gnn, c, E)
+                    trunk["v2_ms"] = time_ms(torch, lambda: gnn_trunk_v2.launch_v2_kernel(
+                        *args, v2_in, src_T, adj_T, o), hide_host=True)
+                    trunk["row1_plan"] = gnn_trunk.kernel_config(
+                        E, args[1], c.gnn_num_heads, c.embed_hidden_size, c.gnn_hidden_size,
+                        c.embed_layer_n, c.gnn_layer_n, B * N)
+                ck_trunks.append(trunk)
+        for f in all_counters:
+            f.launches = 0
+        step_cost = eval_step_cost(ck_runner, ck_ts)
+        emit({"phase": "checkpoint", "label": label, "checkpoint": str(rel_dir),
+              "jax_file": jax_file, "episode": ck_episode, "argv": jax_ref["argv"],
+              "act_flags": act_flags, "agents": ck_env.num_agents, "entities": E,
+              "episode_length": ck_env.episode_length, "envs": EVAL_BATCH,
+              "seeds": EVAL_SEEDS, "seconds": ck_seconds,
+              "wall_ms_per_step": ck_seconds * 1e3 / (EVAL_SEEDS * ck_env.episode_length),
+              "step_cost": step_cost, "port": ck_row, "vs_jax": vs_jax,
+              "launches": ck_launches, "trunks": ck_trunks, "jax_versions": jax_ref["versions"]})
+        if failed:
+            raise AssertionError(f"{label}: the port's evaluation misses the bars: {failed}")
+        if not all(t["ok"] for t in ck_trunks):
+            raise AssertionError(f"{label}: the trained trunks differ through v2 and row 1")
+        return ck_env, ck_launches, ck_seconds
+
+    ck_env, ck_launches, _ = evaluate_checkpoint(
+        "july", JULY_CKPT, "jax_eval.json",
+        ("success_rate", "all_success_rate", "gate_success_rate", "num_agent_collisions"),
+        EVAL_BARS)
+    ckpt_dir = ROOT / JULY_CKPT
+    gated_ck = {}
+    for label, rel_dir, jax_file, held in GATED_EVALS:
+        _, launches_g, seconds_g = evaluate_checkpoint(label, rel_dir, jax_file, held, None)
+        gated_ck[label] = {"launches": launches_g[0], "seconds": seconds_g}
 
     # ---------------------------------------------------------------- eval_cli
     # the eval entry point as a user runs it, on the converted checkpoint
@@ -1430,6 +1595,92 @@ def main() -> int:
           "seconds": ev_seconds, "columns": list(ev_csv[0]), "rows": ev_rows,
           "trunk_launches": steps, "device": torch.cuda.get_device_name(0)})
 
+    # ---------------------------------------------------------------- gated_train
+    # the train entry point on three_phase, warm-started from the converted
+    # rot_inv checkpoint as the shipped three_phase run was: the recipe of
+    # three_phase's config.json (64 envs x 75 steps, 10 PPO epochs, one
+    # minibatch, PopArt; the tanh activations adopted from the source), two
+    # episodes.  The warm-started state is recorded where the CLI makes it
+    # and held, bit for bit, to the CPU's warm start of the same files.
+    from contracts_marl_aam_corridors_tpu_torch.utils import checkpoint as ckpt_mod
+
+    warm_src = ROOT / WEIGHTS / "rot_inv" / "airtaxi"
+    with open(ROOT / WEIGHTS / "three_phase" / "airtaxi" / "config.json") as f:
+        tp_cfg = json.load(f)
+    gt_argv = [f"--{k}={tp_cfg[k]}" for k in GATED_RECIPE_KEYS] + [
+        "--use_popart", "--compute_dtype", "float32", "--log_interval", "1",
+        "--warm_start_dir", str(warm_src),
+        "--num_env_steps", str(GATED_EPISODES * GATED_STEPS * GATED_TRAIN_ENVS)]
+    recorded = {}
+    real_warm_start = ckpt_mod.warm_start_params
+
+    def recording_warm_start(model_dir, ts_new, new_obs_dim):
+        out = real_warm_start(model_dir, ts_new, new_obs_dim)
+        recorded["state"] = {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                             for k, v in train_state_tensors(out).items()}
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_mod.warm_start_params = recording_warm_start
+        gnn_trunk.gnn_trunk_forward.launches = 0
+        gnn_trunk.gnn_trunk_backward.launches = 0
+        try:
+            t0 = time.perf_counter()
+            gt_dir, gt_ts = cli_train.main(gt_argv + ["--run_dir", tmp])
+            torch.cuda.synchronize()
+            gt_seconds = time.perf_counter() - t0
+        finally:
+            ckpt_mod.warm_start_params = real_warm_start
+        gt_fl, gt_bl = gnn_trunk.gnn_trunk_forward.launches, gnn_trunk.gnn_trunk_backward.launches
+        with open(Path(gt_dir) / "metrics.jsonl") as f:
+            gt_recs = [json.loads(line) for line in f]
+        gt_saved = sorted(p.name for p in (Path(gt_dir) / "models").iterdir())
+        gt_cfg = json.loads((Path(gt_dir) / "models" / "config.json").read_text())
+    # per episode: actor and critic each collect step, the bootstrap
+    # critic, actor and critic each epoch; the backward each epoch
+    ppo = int(tp_cfg["ppo_epoch"])
+    gt_want = (GATED_EPISODES * (2 * GATED_STEPS + 1 + 2 * ppo), GATED_EPISODES * 2 * ppo)
+    if (gt_fl, gt_bl) != gt_want:
+        raise AssertionError(f"the gated training launched the trunk kernels {(gt_fl, gt_bl)} "
+                             f"times (forward, backward), expected {gt_want}")
+    # the card's warm start against the CPU's, from the same files
+    cpu_args = parse_all(gt_argv + ["--cuda"])
+    for k, v in arch_act_flags(str(warm_src)).items():
+        setattr(cpu_args, k, v)
+    cpu_env, _, cpu_trainer, _ = cli_train.build(cpu_args, "cpu")
+    cpu_warm = train_state_tensors(ckpt_mod.warm_start_params(
+        str(warm_src), cpu_trainer.init_state(SEED), cpu_env.obs_dim))
+    card_warm = recorded["state"]
+    warm_keys = sorted(k for k in cpu_warm if k.split(".")[0] in ("actor", "critic", "vn"))
+    differ = [k for k in warm_keys if not (
+        torch.equal(card_warm[k].cpu(), cpu_warm[k]) and card_warm[k].dtype == cpu_warm[k].dtype
+        if isinstance(cpu_warm[k], torch.Tensor) else card_warm[k] == cpu_warm[k])]
+    fresh_adam = not any(".step" in k or "exp_avg" in k for k in card_warm)
+    train_recs = [r for r in gt_recs if "value_loss" in r]
+    finite = all(v == v and abs(v) != float("inf") for r in gt_recs for v in r.values())
+    marks = [0.0] + [r["wall_s"] for r in train_recs]
+    gt_episode_s = [b - a for a, b in zip(marks, marks[1:])]
+    emit({"phase": "gated_train", "argv": gt_argv[:-4] + ["--warm_start_dir", str(
+              WEIGHTS / "rot_inv" / "airtaxi")] + gt_argv[-2:],
+          "episodes": GATED_EPISODES, "seconds": gt_seconds, "episode_seconds": gt_episode_s,
+          "graphs_per_update_trunk_call": GATED_TRAIN_ENVS * GATED_STEPS * 3,
+          "trunk_launches": {"forward": gt_fl, "backward": gt_bl, "expected": list(gt_want)},
+          "warm_start": {"tensors_and_values": len(warm_keys), "differ_from_cpu": differ,
+                         "adam_fresh": fresh_adam,
+                         "act_flags": [gt_cfg["use_ReLU"], gt_cfg["embed_use_ReLU"],
+                                       gt_cfg["gnn_use_ReLU"]]},
+          "last_episode": {k: train_recs[-1][k] for k in (
+              "average_episode_rewards", "value_loss", "policy_loss", "env_steps_per_sec")},
+          "saved": gt_saved})
+    if differ or not fresh_adam or len(warm_keys) == 0:
+        raise AssertionError(f"the card's warm start differs from the CPU's: {differ[:5]}, "
+                             f"fresh Adam {fresh_adam}")
+    if len(train_recs) != GATED_EPISODES or not finite or "ckpt_0" not in gt_saved:
+        raise AssertionError(f"the gated training logged {len(train_recs)} episodes (finite "
+                             f"{finite}) and saved {gt_saved}")
+    if any(gt_cfg[k] for k in ("use_ReLU", "embed_use_ReLU", "gnn_use_ReLU")):
+        raise AssertionError("the gated training did not adopt the source's tanh activations")
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -1437,6 +1688,8 @@ def main() -> int:
         "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:299",
         "launches": episodes[-1]["forward_launches"], "rollout_launches": launches,
         "eval_launches": eval_launches, "checkpoint_eval_launches": ck_launches[0],
+        "gated_checkpoint_eval_launches": {k: v["launches"] for k, v in gated_ck.items()},
+        "gated_train_launches": gt_fl,
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
@@ -1446,7 +1699,8 @@ def main() -> int:
         "name": "gnn_trunk_bwd", "route": "cuda",
         "source": f"{PACKAGE}/csrc/gnn_trunk_bwd.cu",
         "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:594",
-        "launches": episodes[-1]["backward_launches"], "max_abs_err": bwd_max_err,
+        "launches": episodes[-1]["backward_launches"], "gated_train_launches": gt_bl,
+        "max_abs_err": bwd_max_err,
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
     }, {

@@ -14,12 +14,22 @@ Writes ``<run_dir>/<env>/<scenario>/<algorithm>/<experiment>/seed<seed>/``:
 ``metrics.jsonl`` and ``models/`` (``ckpt_<episode>/``, ``latest.json``,
 ``config.json``).  ``--model_dir`` resumes from a checkpoint: the state is
 restored whole and training restarts at the saved episode, as the JAX
-package's does.  Differences from the JAX package: one device (no data
-mesh, ROADMAP A10); the classic-MPE path (``build_mpe``/``main_mpe``) waits
-for ROADMAP A9; ``--warm_start_dir``, ``--use_curriculum``,
-``--fuse_gnn_trunks``, ``--use_centralized_V`` (off) and ``--compute_dtype
-bfloat16`` are refused, naming the ROADMAP item that brings them; seeds are
-integers drawn from ``--seed``, not JAX keys.
+package's does.  ``--warm_start_dir`` (without ``--model_dir``) starts from
+another run's weights and value normalizer, with fresh optimizers at episode
+0, after taking that run's activation flags (``utils/checkpoint.py
+warm_start_params``; a rot_inv checkpoint's 13-dim observation is remapped
+to two/three_phase's 15):
+
+    python -m contracts_marl_aam_corridors_tpu_torch.cli.train \
+        --scenario_name three_phase_graph --warm_start_dir \
+        model_weights_torch/rot_inv/airtaxi ...
+
+Differences from the JAX package: one device (no data mesh, ROADMAP A10);
+the classic-MPE path (``build_mpe``/``main_mpe``) waits for ROADMAP A9;
+``--use_curriculum``, ``--fuse_gnn_trunks``, ``--use_centralized_V`` (off),
+``--compute_dtype bfloat16`` and a warm start from the reference's
+``actor.pt`` weights are refused, naming the ROADMAP item that brings them;
+seeds are integers drawn from ``--seed``, not JAX keys.
 """
 from __future__ import annotations
 
@@ -99,14 +109,27 @@ def main(argv=None):
     cli/train.py:251-426, graph path).  Returns the run directory and the
     final ``TrainState``, the one the last checkpoint holds."""
     from ..config.flags import not_ported, parse_all
-    from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+    from ..utils.checkpoint import (
+        arch_act_flags, restore_checkpoint, save_checkpoint, warm_start_checkpoint,
+        warm_start_params,
+    )
     from ..utils.logging import MetricsLogger, agent_env_infos, print_box
 
     args = parse_all(argv)
     if args.env_name == "MPE" or args.scenario_name.startswith("simple_"):
         raise not_ported("the classic-MPE training path", "A9")
-    if args.warm_start_dir:
-        raise not_ported("--warm_start_dir", "A5")
+    warm = args.warm_start_dir and not args.model_dir
+    if warm:
+        warm_start_checkpoint(args.warm_start_dir)  # refuse a source it cannot read
+        # the source's activation flags BEFORE the model is built: they change
+        # the function without changing a parameter's shape, so a mismatch
+        # would warm-start cleanly into a broken policy
+        for k, v in arch_act_flags(args.warm_start_dir).items():
+            if getattr(args, k) != v:
+                print(f"warm start: adopting {k}={v} from the checkpoint's config.json "
+                      f"(run requested {getattr(args, k)}; the activation must match the "
+                      f"loaded weights)", flush=True)
+                setattr(args, k, v)
     device = None if args.cuda else "cpu"
     env_params, policy, trainer, runner = build(args, device)
 
@@ -130,6 +153,10 @@ def main(argv=None):
         # training restarts at the saved episode, as the JAX CLI's does
         ts, start_episode = restore_checkpoint(args.model_dir, ts)
         print(f"resumed from {args.model_dir} at episode {start_episode}", flush=True)
+    elif warm:
+        # weights and value normalizer only: fresh optimizers, episode 0
+        ts = warm_start_params(args.warm_start_dir, ts, env_params.obs_dim)
+        print(f"warm-started params from {args.warm_start_dir}", flush=True)
 
     # in-training eval (reference GMPERunner.eval, cadence at
     # graph_mpe_runner.py:162-194): eval_episodes deterministic episodes in

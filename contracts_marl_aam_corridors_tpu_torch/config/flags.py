@@ -311,7 +311,7 @@ def build_env_params(args):
     scenario = scenario_kind(args.scenario_name)
     if scenario.startswith("sequential") or scenario == "fairassign":
         raise not_ported(f"the {scenario} scenario", "A7")
-    if scenario != "rotate_tube_july":
+    if scenario == "v4oct":
         raise not_ported(f"the {scenario} scenario", "A5")
     if args.dynamics_type == "double_integrator":
         raise not_ported(f"--dynamics_type {args.dynamics_type}", "A5")
@@ -328,6 +328,7 @@ def build_env_params(args):
     args.max_edge_dist = cfg.coordination_range
     return EnvParams(
         cfg=cfg,
+        scenario=scenario,
         num_agents=args.num_agents,
         num_landmarks=args.num_landmarks,
         episode_length=args.episode_length,

@@ -1,5 +1,6 @@
-"""The ``rotate_tube_july`` scenario step on a batch of envs (port of
-``envs/corridor.py``, july only).
+"""The rotated-corridor scenario step on a batch of envs (port of
+``envs/corridor.py``: ``rotate_tube_july`` and the exit-gated rot_inv,
+two_phase and three_phase).
 
 Port of the composition of ``MultiAgentGraphEnv.step``
 (multiagent/environment.py:1021-1063), ``World.step``
@@ -14,10 +15,17 @@ agents j<i in the same step, the phase machine runs twice per agent per step
 the final masked adjacency.  The ordering is kept literally: observations
 are vectorized over agents (each reads only its own mutable state), rewards
 run as a Python loop over the small agent count on tensors batched over
-envs, and the adjacency comes from the post-loop state.
+envs, and the adjacency comes from the post-loop state.  two_phase and
+three_phase interleave the sweep (environment.py:1036-1052): agent i's
+observation row is taken after the rewards of agents j < i, so it sees their
+status flips and cooldown decrements.
 
-The gated scenarios (rot_inv, two_phase, three_phase), v4oct, sequential,
-fairassign, obstacles, walls and the safety filter are not ported yet.
+The exit-gated scenarios round through float32 at the reference's exact
+sites (``_f32r``: rot_inv:1469-1556, 1690-1740), which the float64 parity
+with the JAX package needs; in float32 those roundings are no-ops.
+
+v4oct, sequential, fairassign, obstacles, walls and the safety filter are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from ..ops import distance as dist_ops
 from . import actions as action_mod
 from . import dynamics
 from . import tube as tube_mod
-from .types import EnvParams, EnvState, TimeStep
+from .types import EnvParams, EnvState, TimeStep, TubeParams
 
 
 Tensor = torch.Tensor
@@ -41,6 +49,7 @@ ENTITY_AGENT, ENTITY_LANDMARK = 0.0, 1.0
 _REWARD_WRITES = (
     "status", "prev_phase", "phase_reached", "entry_cooldown", "goal_tracker",
     "spacing_violation", "conformance", "steps_in_corridor", "delta_spacing_sum",
+    "prev_proj",
 )
 
 
@@ -67,6 +76,315 @@ def _agent_ids(params: EnvParams, B: int, device) -> Tensor:
     return torch.arange(n, device=device).expand(B, n)[..., None]
 
 
+# ---------------------------------------------------------------------------
+# The exit-gated scenarios (rot_inv, two_phase, three_phase)
+# ---------------------------------------------------------------------------
+
+
+def _f32r(x: Tensor) -> Tensor:
+    """Round through float32, keeping the working type (the reference's
+    ``.astype(np.float32)`` sites, rot_inv:1469-1556)."""
+    return x.to(torch.float32).to(x.dtype)
+
+
+def _rot_into_heading(v: Tensor, heading: Tensor) -> Tensor:
+    """World-frame vectors (..., 2) into the ego heading frame, ``heading``
+    broadcast against ``v[..., 0]`` (utils.py
+    ``get_rotated_position_from_relative``:66-75: R = [[cos, sin], [-sin, cos]])."""
+    c, s = torch.cos(heading), torch.sin(heading)
+    return torch.stack([c * v[..., 0] + s * v[..., 1], -s * v[..., 0] + c * v[..., 1]], dim=-1)
+
+
+def _gate_levels(params: EnvParams) -> int:
+    return {"rot_inv": 0, "two_phase": 1, "three_phase": 2}[params.scenario]
+
+
+def _gated_phase(params: EnvParams, tube: TubeParams, pos: Tensor, prev: Tensor,
+                 reached: Tensor) -> Tensor:
+    """The gated phase machine for positions (B, K, 2), prev/reached (B, K)."""
+    return tube_mod.agent_phase_gated(
+        tube, pos, prev, reached,
+        params.gate_front_ratio, params.gate_back_ratio,
+        params.exit_back, params.exit_front_ratio,
+        in_tube_exit_levels=_gate_levels(params),
+    )
+
+
+def _corridor_heading_error(tube: TubeParams, heading: Tensor) -> Tensor:
+    """Heading minus the corridor axis, wrapped into [-pi, pi); ``heading``
+    (B, ...) with the tube's (B,) axis broadcast."""
+    axis = torch.atan2(tube.e[:, 1], tube.e[:, 0]).reshape((-1,) + (1,) * (heading.ndim - 1))
+    return torch.remainder(heading - axis + math.pi, 2 * math.pi) - math.pi
+
+
+def _two_nearest_rel(params: EnvParams, pos: Tensor, status: Tensor) -> Tensor:
+    """Each agent's two nearest neighbours' relative vectors (B, n, 2, 2),
+    zero where excluded.  rot_inv counts done agents (rot_inv:1477-1494);
+    two/three_phase skip ``status`` agents.  Excluded distances are inf and
+    the sort is stable, so ties order by index as ``jnp.argsort`` does."""
+    n = params.num_agents
+    rel = pos[:, None, :, :] - pos[:, :, None, :]  # [b, i, j] = pos_j - pos_i
+    d = _norm(rel)
+    exclude = torch.eye(n, dtype=torch.bool, device=pos.device).expand_as(d)
+    if params.scenario in ("two_phase", "three_phase"):
+        exclude = exclude | status[:, None, :]
+    d = torch.where(exclude, math.inf, d)
+    order = torch.argsort(d, dim=-1, stable=True)[..., :2]  # (B, n, 2)
+    vecs = torch.gather(rel, 2, order[..., None].expand(*order.shape, 2))
+    valid = torch.gather(~exclude, 2, order)
+    return vecs * valid[..., None]
+
+
+def _gated_obs(params: EnvParams, state: EnvState, values: Tensor) -> Tensor:
+    """The 13-dim rot_inv observation (rot_inv:1453-1556), or the 15-dim
+    two/three_phase one (adds the heading alignment; two_phase's goal is the
+    tube exit), for every agent from ``values`` and the current status:
+    [cos, sin heading, speed, rot goal(2), rot two nearest(4), s/L, y/hw,
+    exit distance/L, (cos, sin heading error), phase]."""
+    n = params.num_agents
+    pos = values[..., :2]
+    heading = values[..., 2]
+    speed = dynamics.speed_of(values)
+    tube = state.tube
+    phase = _gated_phase(params, tube, pos, state.prev_phase, state.phase_reached)
+
+    if params.scenario == "two_phase":
+        goal_vec = _f32r(tube.exit)[:, None, :] - pos  # the exit cast to float32 first
+    else:
+        goal_vec = _gather_rows(state.landmark_pos, state.goal_match) - pos
+    rot_goal = _rot_into_heading(goal_vec, heading)
+    # the neighbour vectors are cast to float32 BEFORE the rotation (rot_inv:1489-1492)
+    nb = _f32r(_two_nearest_rel(params, pos, state.status))
+    rot_nb = _rot_into_heading(nb, heading[..., None]).reshape(pos.shape[0], n, 4)
+
+    s, y = tube_mod.tube_coords(tube, pos)
+    L = tube.frame_length[:, None]
+    cols = [
+        torch.cos(heading)[..., None],
+        torch.sin(heading)[..., None],
+        speed[..., None],
+        rot_goal,
+        rot_nb,
+        torch.clamp(s / L, -2.0, 2.0)[..., None],
+        torch.clamp(y / (tube.half_width[:, None] + 1e-9), -2.0, 2.0)[..., None],
+        (tube_mod.exit_gate_distance(tube, s, y) / (L + 1e-9))[..., None],
+    ]
+    if params.scenario in ("two_phase", "three_phase"):
+        he = _corridor_heading_error(tube, heading)
+        cols += [torch.cos(he)[..., None], torch.sin(he)[..., None]]
+    cols.append(phase[..., None].to(pos.dtype))
+    return _f32r(torch.cat(cols, dim=-1))  # the final .astype(np.float32)
+
+
+def _observations_gated(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
+    """Every agent's gated observation from the state's positions, with
+    phase call #1's cooldown decrement (the gated machine changes no
+    ``previous_phase``)."""
+    obs = _gated_obs(params, state, state.agent_states)
+    return dataclasses.replace(state, entry_cooldown=_decrement_cooldown(state.entry_cooldown)), obs
+
+
+def _obs_gated_row(params: EnvParams, state: EnvState, values: Tensor, i: int) -> Tensor:
+    """Agent i's observation row (B, obs_dim) from the CURRENT values and
+    status, for the interleaved two/three_phase sweep where the rewards of
+    agents j < i already changed them this step (environment.py:1036-1052).
+    Decrements agent i's cooldown in place."""
+    state.entry_cooldown[:, i] = _decrement_cooldown(state.entry_cooldown[:, i])
+    return _gated_obs(params, state, values)[:, i]
+
+
+def _node_obs_gated(params: EnvParams, state: EnvState, values: Tensor, i: int) -> Tensor:
+    """Rotation-invariant node features wrt ego agent i, (B, E, 7)
+    (rot_inv ``_get_entity_feat_relative``:1690-1740): [rot rel_vel(2),
+    rot rel_pos(2), rot rel_goal(2), entity_type(1)]."""
+    n, l = params.num_agents, params.num_landmarks
+    B = values.shape[0]
+    # positions and velocities are cast to float32 BEFORE the relative
+    # subtraction (rot_inv:1702-1715)
+    pos = _f32r(values[..., :2])
+    vel = _f32r(dynamics.velocity_of(values))
+    heading_i = values[:, i, 2][:, None]
+    lm = _f32r(state.landmark_pos)
+    entity_pos = torch.cat([pos, lm], dim=1)
+    entity_vel = torch.cat([vel, vel.new_zeros(B, l, 2)], dim=1)
+    pos_i = pos[:, i : i + 1]
+    # float32 minus float32 is computed in float32 by numpy: the differences
+    # round too
+    rel_pos = _f32r(_rot_into_heading(_f32r(entity_pos - pos_i), heading_i))
+    rel_vel = _f32r(_rot_into_heading(_f32r(entity_vel - vel[:, i : i + 1]), heading_i))
+    if params.scenario == "two_phase":
+        goal_world = _f32r(state.tube.exit)[:, None, :].expand(B, n, 2)
+    else:
+        goal_world = _gather_rows(lm, state.goal_match)
+    goal_rel = _f32r(_rot_into_heading(_f32r(goal_world - pos_i), heading_i))
+    rel_goal = torch.cat([goal_rel, rel_pos[:, n:]], dim=1)
+    etype = torch.cat(
+        [pos.new_full((B, n), ENTITY_AGENT), pos.new_full((B, l), ENTITY_LANDMARK)], dim=1
+    )[..., None]
+    return torch.cat([rel_vel, rel_pos, rel_goal, etype], dim=-1)
+
+
+def _reward_one_agent_gated(
+    params: EnvParams, state: EnvState, values: Tensor, i: int, gen: torch.Generator
+) -> Tensor:
+    """Reward for agent ``i`` in the exit-gated family (rot_inv ``reward``
+    :1122-1343 and its two/three_phase variants), with its in-step
+    mutations: writes the ``_REWARD_WRITES`` fields of ``state`` and row
+    ``i`` of ``values`` in place, in agent-id order like the july reward."""
+    cfg = params.cfg
+    scenario = params.scenario
+    dtype = values.dtype
+    n = params.num_agents
+    pos = values[..., :2].clone()
+    pos_i = pos[:, i]
+    pos_ii = pos[:, i : i + 1]
+    tube = state.tube
+    dev = values.device
+
+    # phase call #2 (get_agent_phase inside reward): decrements agent i's cooldown
+    state.entry_cooldown[:, i] = _decrement_cooldown(state.entry_cooldown[:, i])
+    prev_i = state.prev_phase[:, i].clone()
+    reached_i = state.phase_reached[:, i].clone()
+    status_i = state.status[:, i].clone()
+    cur = _gated_phase(params, tube, pos_ii, prev_i[:, None], reached_i[:, None])[:, 0]
+
+    # collisions: rot_inv x4 agent (rot_inv:1134-1142; its x3 obstacle term
+    # has no obstacles here); three_phase x1 agent; two_phase none
+    not_self = torch.arange(n, device=dev) != i
+    colliding = (
+        (_norm(pos - pos_i[:, None]) < cfg.separation_distance)
+        & ~state.status
+        & ~status_i[:, None]
+        & not_self
+    )
+    rew = torch.zeros_like(pos_i[:, 0])
+    if scenario == "rot_inv":
+        rew = rew - (params.collision_rew * 4) * colliding.sum(dim=-1).to(dtype)
+    elif scenario == "three_phase":
+        rew = rew - params.collision_rew * colliding.sum(dim=-1).to(dtype)
+
+    # front/back spacing neighbours by own heading (rot_inv:1149-1161)
+    heading = values[:, i, 2].clone()
+    rel = pos - pos_i[:, None]
+    proj_h = rel[..., 0] * torch.cos(heading)[:, None] + rel[..., 1] * torch.sin(heading)[:, None]
+    front_mask = not_self & (proj_h > 0)
+    back_mask = not_self & (proj_h <= 0)
+    front_idx = torch.where(front_mask, proj_h, math.inf).argmin(dim=-1)
+    back_idx = torch.where(back_mask, proj_h, -math.inf).argmax(dim=-1)
+    desired = cfg.separation_distance
+
+    s, y = tube_mod.tube_coords(tube, pos_ii)
+    in_tube = tube_mod.in_tube_rect(tube, s, y)[:, 0]
+    valid_exit = tube_mod.in_exit_gate(tube, s, y, params.exit_back, params.exit_front_ratio)[:, 0]
+    in_gate = tube_mod.in_entrance_gate(
+        tube, s, y, params.gate_front_ratio, params.gate_back_ratio)[:, 0]
+    proj = tube_mod.entrance_projection(tube, pos_ii)[0][:, 0]
+
+    # phase-skip penalty (rot_inv:1177-1181)
+    rew = rew - params.goal_rew * ((cur == 2) & (cur > prev_i + 1)).to(dtype)
+
+    # transition bonuses (rot_inv:1189-1216)
+    trans = (cur == prev_i + 1) & (reached_i == cur - 1)
+    cooldown_i = state.entry_cooldown[:, i]
+    enter_bonus = trans & (cur == 1) & in_gate & (cooldown_i == 0)
+    exit_bonus = trans & (cur == 2)
+    rew = rew + params.goal_rew * (enter_bonus | exit_bonus).to(dtype)
+    state.entry_cooldown[:, i] = torch.where(
+        enter_bonus, torch.full_like(cooldown_i, params.cooldown_steps), cooldown_i)
+    reached_i = torch.where(enter_bonus, torch.ones_like(reached_i), reached_i)
+    reached_i = torch.where(exit_bonus, torch.full_like(reached_i, 2), reached_i)
+
+    # two_phase freezes at the exit transition (+5g, status, reset velocity)
+    newly = torch.zeros_like(status_i)
+    if scenario == "two_phase":
+        newly = exit_bonus & ~status_i
+        rew = rew + newly.to(dtype) * params.goal_rew * 5
+
+    # heading error to the corridor axis (two/three_phase penalties)
+    he = _corridor_heading_error(tube, heading).abs()
+
+    is_p0_b = cur == 0
+    is_p0 = is_p0_b.to(dtype)
+    is_p1_b = cur == 1
+    is_p1 = is_p1_b.to(dtype)
+    demote = (cur == 2) & (reached_i == 0)
+    goal_branch = (cur == 2) & ~demote
+
+    # phase 0: distance to the entrance edge (rot_inv:1227-1232)
+    egd = tube_mod.entrance_gate_distance(tube, s, y)[:, 0]
+    rew = rew - is_p0 * egd
+    if scenario in ("two_phase", "three_phase"):
+        near_gate = egd < params.world_size * 0.1
+        rew = rew - (is_p0_b & near_gate).to(dtype) * he * params.formation_rew * 0.5
+
+    # phase 1 (rot_inv:1244-1276)
+    front_diff = _norm(_gather_rows(pos, front_idx[:, None])[:, 0] - pos_i) - desired
+    back_diff = _norm(_gather_rows(pos, back_idx[:, None])[:, 0] - pos_i) - desired
+    zero = torch.zeros_like(front_diff)
+    spacing_error = torch.where(
+        front_mask.any(dim=-1) & (front_diff < 0), -front_diff, zero
+    ) + torch.where(back_mask.any(dim=-1) & (back_diff < 0), -back_diff, zero)
+    state.spacing_violation[:, i] += (is_p1_b & (spacing_error > 0)).to(dtype)
+    if scenario in ("rot_inv", "three_phase"):
+        state.delta_spacing_sum += is_p1 * spacing_error
+    state.steps_in_corridor[:, i] += is_p1
+    rew = rew - is_p1 * spacing_error * params.formation_rew
+    rew = rew - is_p1 * tube_mod.exit_gate_distance(tube, s, y)[:, 0]
+    if scenario == "rot_inv":
+        progress_gain = params.goal_rew / (tube.length * 10.0)
+        # prev_proj is float32 in the reference (rot_inv:374): stored rounded
+        delta_proj = proj - state.prev_proj[:, i]
+        rew = rew + is_p1 * progress_gain * torch.clamp(delta_proj, min=-0.05)
+        state.prev_proj[:, i] = torch.where(
+            is_p1_b, _f32r(proj).to(state.prev_proj.dtype), state.prev_proj[:, i])
+    else:
+        rew = rew - is_p1 * he * params.formation_rew * 0.1
+
+    # phase 2: goal seek and freeze (rot_inv:1286-1301; three_phase the same
+    # without goal_tracker; two_phase has no phase-2 term, it froze at the exit)
+    if scenario in ("rot_inv", "three_phase"):
+        goal_pos = _gather_rows(state.landmark_pos, state.goal_match[:, i : i + 1])[:, 0]
+        dist_goal = _norm(pos_i - goal_pos)
+        at_goal = goal_branch & (dist_goal < cfg.goal_threshold)
+        newly = at_goal & ~status_i
+        rew = rew + newly.to(dtype) * params.goal_rew * 5
+        rew = rew - (goal_branch & (dist_goal >= cfg.goal_threshold)).to(dtype) * dist_goal
+    if scenario == "rot_inv":
+        state.goal_tracker[:, i] = torch.where(
+            newly, state.goal_match[:, i], state.goal_tracker[:, i])
+
+    # the freeze resets the velocity (core.py:324-333): a fresh heading
+    # theta ~ U(0, 2pi) at speed v_min
+    row = values[:, i]
+    theta = (2 * math.pi) * torch.rand(row.shape[0], generator=gen, dtype=dtype, device=dev)
+    reset_row = torch.stack(
+        [row[:, 0], row[:, 1], theta, torch.full_like(theta, cfg.v_min)], dim=-1
+    )
+    values[:, i] = torch.where(newly[:, None], reset_row, row)
+    state.status[:, i] = status_i | newly
+
+    # conformance / phase_reached / regression (rot_inv:1306-1325)
+    cur2 = torch.where(demote, torch.zeros_like(cur), cur)
+    state.conformance[:, i] += ((reached_i == 1) & (cur2 == 0)).to(dtype)
+    new_pr = torch.maximum(reached_i, cur2)
+    rew = rew - params.collision_rew * (cur2 < prev_i).to(dtype)
+    rew = rew - params.collision_rew * (cur2 < new_pr).to(dtype)
+
+    # in the tube but not in phase 1 (rot_inv:1327-1329; three_phase also
+    # requires not in the exit gate)
+    bad_in_tube = in_tube & (cur2 != 1)
+    if scenario == "three_phase":
+        bad_in_tube = bad_in_tube & ~valid_exit
+    rew = rew - params.collision_rew * bad_in_tube.to(dtype)
+
+    # skipped corridor (rot_inv:1332-1334)
+    rew = rew - params.goal_rew * ((s[:, 0] > tube.frame_length) & (new_pr < 1)).to(dtype)
+
+    state.phase_reached[:, i] = new_pr
+    state.prev_phase[:, i] = cur2
+    return torch.clamp(rew, -4 * params.collision_rew, params.goal_rew * 5)
+
+
 def observations(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
     """The 19-dim observation for every agent (july:1337-1463).
 
@@ -75,7 +393,10 @@ def observations(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
     rel_exit(2), tube_width(1), phase(1)].  Performs phase-machine call #1
     for each agent (cooldown decrement and the possible 1->2
     ``previous_phase`` mutation), as the reference's ``observation`` does.
+    The gated scenarios take their own observation (``_gated_obs``).
     """
+    if params.gated:
+        return _observations_gated(params, state)
     n = params.num_agents
     pos = state.agent_states[..., :2]
     vel = dynamics.velocity_of(state.agent_states)
@@ -108,7 +429,10 @@ def observations(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
 
 
 def _node_obs_for_agent(params: EnvParams, state: EnvState, values: Tensor, i: int) -> Tensor:
-    """Relative node features wrt ego agent i (july:1694-1771), (B, E, 8)."""
+    """Relative node features wrt ego agent i (july:1694-1771), (B, E, 8);
+    the gated scenarios' (B, E, 7) come from ``_node_obs_gated``."""
+    if params.gated:
+        return _node_obs_gated(params, state, values, i)
     n, l = params.num_agents, params.num_landmarks
     pos = values[..., :2]
     vel = dynamics.velocity_of(values)
@@ -148,8 +472,11 @@ def _reward_one_agent(
     """Reward for agent ``i`` with its in-step mutations (july ``reward``
     :1105-1221).  Writes the ``_REWARD_WRITES`` fields of ``state`` and row
     ``i`` of ``values`` in place; must run in agent-id order, since it reads
-    the status and velocities earlier agents wrote this step.
+    the status and velocities earlier agents wrote this step.  The gated
+    scenarios take ``_reward_one_agent_gated``.
     """
+    if params.gated:
+        return _reward_one_agent_gated(params, state, values, i, gen)
     cfg = params.cfg
     dtype = values.dtype
     n = params.num_agents
@@ -393,17 +720,27 @@ def step(
         agent_states=values,
     )
 
-    # observations for all agents (phase call #1)
-    state, obs = observations(params, state)
+    interleaved = params.scenario in ("two_phase", "three_phase")
+    if not interleaved:
+        # observations for all agents (phase call #1), vectorized: july and
+        # rot_inv observations read only per-agent state that earlier
+        # rewards cannot have changed
+        state, obs = observations(params, state)
 
     # sequential reward sweep (phase call #2 each); node features are taken
-    # per agent right after its reward (environment.py:1040-1046)
+    # per agent right after its reward (environment.py:1040-1046).  The sweep
+    # writes into copies of the fields it changes, never into the caller's.
     state = dataclasses.replace(state, **{k: getattr(state, k).clone() for k in _REWARD_WRITES})
     values = values.clone()
-    rewards, node_obs = [], []
+    obs_rows, rewards, node_obs = [], [], []
     for i in range(n):
+        if interleaved:
+            # agent i's row sees the rewards of agents j < i (two/three_phase)
+            obs_rows.append(_obs_gated_row(params, state, values, i))
         rewards.append(_reward_one_agent(params, state, values, i, gen))
         node_obs.append(_node_obs_for_agent(params, state, values, i))
+    if interleaved:
+        obs = torch.stack(obs_rows, dim=1)
     state = dataclasses.replace(state, agent_states=values)
     reward = torch.stack(rewards, dim=1)
     node_obs = torch.stack(node_obs, dim=1)

@@ -1,8 +1,10 @@
 """Episode reset for a batch of envs: tube sampling, agent spawning, landmark
-placement (port of ``envs/reset.py``, july branch).
+placement (port of ``envs/reset.py``: the july and exit-gated scenarios).
 
 Same distributions and rejection rule as the reference's ``reset_world`` ->
-``random_scenario`` -> ``setup_tube_params`` chain (july:339-613); the random
+``random_scenario`` -> ``setup_tube_params`` chain (july:339-613; the
+gated scenarios' spawn jitter and spacing, and two/three_phase's tube
+length draw, as the JAX package's ``EnvParams`` properties give them); the random
 stream is a ``torch.Generator``'s, so draws differ from both the reference
 and the JAX package.
 """
@@ -19,9 +21,6 @@ Tensor = torch.Tensor
 
 AGENT_SIZE = 0.06  # Entity.size default (core.py:385)
 SPAWN_CANDIDATES = 32
-# july spawn rule (july:452-486): jitter 0.2*U(-ws, ws), spacing (ws+k)/5
-SPAWN_JITTER_SCALE = 0.2
-SPAWN_SPACING_DIV = 5.0
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, like: Tensor) -> Tensor:
@@ -40,6 +39,7 @@ def _blank_state(params: EnvParams, B: int, tube: TubeParams, dtype, device) -> 
         status=torch.zeros((B, n), dtype=torch.bool, device=device),
         phase_reached=zi(B, n),
         entry_cooldown=zi(B, n),
+        prev_proj=zf(B, n),
         tube=tube,
         occupied=zf(B, n),
         goal_match=torch.arange(n, device=device).expand(B, n).clone(),
@@ -74,8 +74,9 @@ def _place_landmarks(params: EnvParams, tube: TubeParams) -> Tensor:
 def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> Tensor:
     """Sequential rejection-sampled spawn along the pre-entrance axis.
 
-    july:452-486: agent k tries ``entrance + (world_size+k)/5 * perp +
-    jitter`` with jitter ~ 0.2*U(-ws, ws)^2, rejected while within separation
+    july:452-486: agent k tries ``entrance + (world_size+k)/div * perp +
+    jitter`` with jitter ~ scale*U(-ws, ws)^2 (div 5 and scale 0.2 for july,
+    3 and 0.3 for the gated scenarios), rejected while within separation
     distance of an already-placed agent.  Like the JAX package, a fixed block
     of K candidates is drawn per agent and the first collision-free one is
     taken (the first candidate if none is free; failure probability is below
@@ -87,10 +88,11 @@ def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> 
     B = ang.shape[0]
     perp = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
     sep = params.cfg.separation_distance
+    jscale, sdiv = params.spawn_jitter_scale, params.spawn_spacing_div
     placed = []
     for k in range(n):
-        jitter = SPAWN_JITTER_SCALE * _uniform(gen, (B, K, 2), -ws, ws, ang)
-        base = tube.entrance + (ws + k) / SPAWN_SPACING_DIV * perp
+        jitter = jscale * _uniform(gen, (B, K, 2), -ws, ws, ang)
+        base = tube.entrance + (ws + k) / sdiv * perp
         cand = base[:, None, :] + jitter  # (B, K, 2)
         if placed:
             prev = torch.stack(placed, dim=1)  # (B, k, 2)
@@ -123,7 +125,12 @@ def reset(
     B, n = num_envs, params.num_agents
     ref = torch.empty((B,), dtype=dtype, device=device)
     angle = _uniform(gen, (B,), -math.pi / 2, math.pi / 2, ref)
-    tube = tube_mod.make_tube(angle, params.world_size, AGENT_SIZE)
+    length = None
+    if params.randomize_tube_length:
+        # two_phase setup: length = 0.8ws + U(-0.3ws, 0.1ws)
+        ws = params.world_size
+        length = ws * 0.8 + _uniform(gen, (B,), -0.3 * ws, 0.1 * ws, ref)
+    tube = tube_mod.make_tube(angle, params.world_size, AGENT_SIZE, length)
     agent_pos = _spawn_agents(params, tube, gen)
     theta, speed = _initial_velocity(params, gen, B, ref)
     agent_states = torch.cat([agent_pos, theta[..., None], speed[..., None]], dim=-1)

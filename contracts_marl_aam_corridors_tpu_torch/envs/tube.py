@@ -1,9 +1,10 @@
-"""Rotated-corridor ("tube") geometry and the july phase machine (port of
-``envs/tube.py``).
+"""Rotated-corridor ("tube") geometry, the july phase machine and the
+exit-gated one (port of ``envs/tube.py``).
 
 Counterparts of the reference scenario helpers ``setup_tube_params``
-(july:518-613), ``_tube_coords``/``_in_tube_rect``/``_in_entrance_gate``
-(july:616-645) and ``get_agent_phase`` (july:683-733).
+(july:518-613), ``_tube_coords``/``_in_tube_rect``/``_in_entrance_gate``/
+``_entrance_gate_distance`` (july:616-645), ``get_agent_phase``
+(july:683-733) and the exit gate of rot_inv (:655-672, :681-733).
 
 Batch convention: tube fields are ``(B, 2)`` or ``(B,)``; positions are
 ``(B, K, 2)`` (K agents per env) and results ``(B, K)``.
@@ -94,6 +95,75 @@ def in_entrance_gate(
         & (s <= gate_front + EPS)
         & (y.abs() <= _sc(tube.half_width) + EPS)
     )
+
+
+def entrance_gate_distance(tube: TubeParams, s: Tensor, y: Tensor) -> Tensor:
+    """Distance to the entrance edge (july:638-645)."""
+    hw = _sc(tube.half_width)
+    clamped_y = torch.maximum(torch.minimum(y, hw), -hw)
+    return torch.hypot(s.abs(), y - clamped_y)
+
+
+def in_exit_gate(
+    tube: TubeParams, s: Tensor, y: Tensor, exit_back_ratio: float, exit_front_ratio: float
+) -> Tensor:
+    """Full-width exit gate: s in [L-exit_back, L+exit_front] (rot_inv:655-659)."""
+    L = _sc(tube.frame_length)
+    return (
+        (L - exit_back_ratio * L - EPS <= s)
+        & (s <= L + exit_front_ratio * L + EPS)
+        & (y.abs() <= _sc(tube.half_width) + EPS)
+    )
+
+
+def exit_gate_distance(tube: TubeParams, s: Tensor, y: Tensor) -> Tensor:
+    """Distance to the exit edge, forward only (rot_inv:662-672)."""
+    hw = _sc(tube.half_width)
+    clamped_y = torch.maximum(torch.minimum(y, hw), -hw)
+    ds = torch.clamp(_sc(tube.frame_length) - s, min=0.0)
+    return torch.hypot(ds, y - clamped_y)
+
+
+def agent_phase_gated(
+    tube: TubeParams,
+    pos: Tensor,
+    prev_phase: Tensor,
+    phase_reached: Tensor,
+    gate_front_ratio: float,
+    gate_back_ratio: float,
+    exit_back_ratio: float,
+    exit_front_ratio: float,
+    in_tube_exit_levels: int = 0,
+) -> Tensor:
+    """The exit-gated phase machine of rot_inv / two_phase / three_phase
+    (rot_inv ``get_agent_phase``:681-733, and the two_phase variant).
+
+    Against the july machine: ``passed`` is ``s > L``, phase 2 also needs
+    the agent in the exit gate (or already in phase 2) and
+    ``phase_reached >= 1``, and the call mutates no ``previous_phase``.
+    ``in_tube_exit_levels``: 0 = exit only past the tube (rot_inv); 1 =
+    prev==1 in the exit gate gives 2 while still in the tube (two_phase);
+    2 = prev==2 there too (three_phase).
+    """
+    s, y = tube_coords(tube, pos)
+    in_tube = in_tube_rect(tube, s, y)
+    passed = s > _sc(tube.frame_length)
+    valid_entrance = in_entrance_gate(tube, s, y, gate_front_ratio, gate_back_ratio)
+    valid_exit = in_exit_gate(tube, s, y, exit_back_ratio, exit_front_ratio)
+
+    zero = torch.zeros_like(prev_phase)
+    one = torch.ones_like(prev_phase)
+    two = torch.full_like(prev_phase, 2)
+    phase_in = torch.where(prev_phase == 0, torch.where(valid_entrance, one, zero), one)
+    if in_tube_exit_levels >= 1:
+        exit_in_tube = (prev_phase == 1) & valid_exit
+        if in_tube_exit_levels >= 2:
+            exit_in_tube |= (prev_phase == 2) & valid_exit
+        phase_in = torch.where((prev_phase != 0) & exit_in_tube, two, phase_in)
+    phase_out = torch.where(
+        (phase_reached >= 1) & (((prev_phase == 1) & valid_exit) | (prev_phase == 2)), two, zero
+    )
+    return torch.where(in_tube, phase_in, torch.where(passed, phase_out, zero))
 
 
 def passed_tube(tube: TubeParams, pos: Tensor) -> Tensor:

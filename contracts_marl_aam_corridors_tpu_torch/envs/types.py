@@ -8,12 +8,13 @@ functions are plain functions on those batched tensors.
 Entity ordering on the graph axis matches the reference's ``World.entities``
 (core.py:574-582): agents, then landmarks.
 
-This slice carries the ``rotate_tube_july`` scenario (point landmark
+The port carries the ``rotate_tube_july`` scenario and the exit-gated
+``rot_inv``, ``two_phase`` and ``three_phase`` scenarios (point landmark
 formation, heading-model dynamics, closed-form integrator, no obstacles,
-walls or safety filter).  ``EnvState`` holds only the fields that scenario
-reads or writes (no ``prev_proj``, ``obstacle_pos``, ``goal_history``,
-safety-filter or sequential-scenario fields), and no RNG key: every random
-draw takes an explicit ``torch.Generator``.
+walls or safety filter).  ``EnvState`` holds only the fields those scenarios
+read or write (no ``obstacle_pos``, ``goal_history``, safety-filter or
+sequential-scenario fields), and no RNG key: every random draw takes an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -27,15 +28,21 @@ from ..config.physics import DynamicsType, RewardWeights, VehicleConfig
 
 Tensor = torch.Tensor
 
+SCENARIOS = ("rotate_tube_july", "rot_inv", "two_phase", "three_phase")
+GATED_SCENARIOS = ("rot_inv", "two_phase", "three_phase")
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvParams:
-    """Static configuration of the ``rotate_tube_july`` scenario (reference
+    """Static configuration of the corridor scenarios (reference
     ``make_world``, july:154-242).  Field names and defaults are the JAX
     package's; fields of the scenarios, integrators and filters not ported
     yet are absent."""
 
     cfg: VehicleConfig
+    # 'rotate_tube_july', or one of the exit-gated 'rot_inv', 'two_phase',
+    # 'three_phase'
+    scenario: str = "rotate_tube_july"
     num_agents: int = 3
     num_landmarks: int = 3
     episode_length: int = 25
@@ -49,8 +56,13 @@ class EnvParams:
     # entrance-gate ratios (july:611-613)
     gate_front_ratio: float = 0.08
     gate_back_ratio: float = 0.02
+    # exit-gate ratios (rot_inv:619-620; two/three_phase use exit_back 0.02)
+    exit_back_ratio: float = 0.05
+    exit_front_ratio: float = 0.08
 
     def __post_init__(self):
+        if self.scenario not in SCENARIOS:
+            raise NotImplementedError(f"the torch port has no {self.scenario!r} scenario")
         if self.cfg.dynamics == DynamicsType.DOUBLE_INTEGRATOR:
             raise NotImplementedError(
                 "the torch port carries the heading models (air_taxi, unicycle) only"
@@ -61,13 +73,54 @@ class EnvParams:
         return self.num_agents + self.num_landmarks
 
     @property
+    def gated(self) -> bool:
+        """The exit-gated scenario family (rot_inv, two_phase, three_phase)."""
+        return self.scenario in GATED_SCENARIOS
+
+    @property
     def node_feat_dim(self) -> int:
         # july (8): [rel_vel(2), rel_pos(2), rel_goal(2), occupied(1), type(1)]
-        return 8
+        # gated (7): rotated into the ego heading, no occupied flag
+        # (rot_inv:1690-1740)
+        return 7 if self.gated else 8
 
     @property
     def obs_dim(self) -> int:
+        if self.scenario == "rot_inv":
+            return 13  # rot_inv:1453-1556
+        if self.scenario in ("two_phase", "three_phase"):
+            return 15  # adds the heading alignment (2)
         return 19
+
+    @property
+    def randomize_tube_length(self) -> bool:
+        """two/three_phase draw length += U(-0.3ws, 0.1ws) (two_phase setup)."""
+        return self.scenario in ("two_phase", "three_phase")
+
+    @property
+    def exit_back(self) -> float:
+        # two/three_phase override exit_back_ratio to 0.02
+        if self.scenario in ("two_phase", "three_phase"):
+            return 0.02
+        return self.exit_back_ratio
+
+    @property
+    def spawn_jitter_scale(self) -> float:
+        """Spawn jitter: 0.2*U (july:462) vs 0.3*U (the gated family)."""
+        return 0.3 if self.gated else 0.2
+
+    @property
+    def spawn_spacing_div(self) -> float:
+        """distance_from_entrance = (ws+k)/5 (july) vs /3 (the gated family)."""
+        return 3.0 if self.gated else 5.0
+
+    @property
+    def cooldown_steps(self) -> int:
+        """phase_reward_cooldown_steps: ep_len/10 (rot_inv:228) or the full
+        ep_len (two/three_phase).  july never uses the cooldown in its reward."""
+        if self.scenario in ("two_phase", "three_phase"):
+            return int(self.episode_length)
+        return int(self.episode_length / 10)
 
     @property
     def num_actions(self) -> int:
@@ -100,6 +153,7 @@ class EnvState:
     prev_phase: Tensor  # (B, N) long; persists across auto-reset
     phase_reached: Tensor  # (B, N) long
     entry_cooldown: Tensor  # (B, N) long
+    prev_proj: Tensor  # (B, N) rot_inv progress-reward state (rot_inv:1265-1275)
     tube: TubeParams
     landmark_pos: Tensor  # (B, L, 2)
     occupied: Tensor  # (B, N) landmark_poses_occupied (july:506)
@@ -157,7 +211,7 @@ def env_state_from_numpy(fields: dict, device, dtype=torch.float64) -> EnvState:
     ``fields`` is keyed by the JAX package's ``EnvState`` field names, with
     ``tube`` a dict keyed by ``TubeParams`` names (for example built from a
     vmapped JAX state with ``np.asarray`` on each leaf).  Fields this slice
-    does not carry (``key``, ``prev_proj``, safety and sequential fields) are
+    does not carry (``key``, safety and sequential fields) are
     ignored.  Floating arrays become ``dtype``, integer arrays ``torch.long``,
     booleans stay boolean.
     """

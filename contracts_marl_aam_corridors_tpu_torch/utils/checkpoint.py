@@ -1,8 +1,9 @@
-"""Checkpoint save and restore (port of the JAX package's
+"""Checkpoint save, restore and warm start (port of the JAX package's
 ``utils/checkpoint.py``: ``save_checkpoint``, ``restore_checkpoint``,
 ``load_run_config``, ``merge_eval_args``, ``warm_start_arch_flags`` (as
-``arch_act_flags``) and ``_resolve_ckpt_path``, :24-94, :132-160 and
-:184-200).
+``arch_act_flags``), ``_OBS_LAYOUT_INSERTS``, ``_obs_index_map``,
+``_remap_rows``, ``_resolve_ckpt_path`` and ``warm_start_params``, :24-94
+and :132-288).
 
 The layout is the JAX package's: ``<save_dir>/ckpt_<episode>/`` holds the
 whole ``TrainState`` (both networks, both Adam states, the value normalizer)
@@ -181,3 +182,99 @@ def _resolve_ckpt_path(model_dir: str) -> str:
     if not cands:
         raise FileNotFoundError(f"no checkpoint under {model_dir}")
     return os.path.abspath(os.path.join(model_dir, cands[-1]))
+
+
+# ----------------------------------------------------------- warm start
+# The reference's ``restore`` (base_runner.py:179-192) loads the actor and
+# critic WEIGHTS only: the optimizers start fresh and the episode counter
+# restarts.  A rot_inv checkpoint warm-starts the two/three_phase runs (their
+# config.yaml files name model_weights/rot_inv/airtaxi), whose observation
+# inserts the heading-alignment pair at slots 12-13 of rot_inv's 13 (the
+# phase slot moves from 12 to 14); the new rows enter the actor's input
+# LayerNorm with scale 1 and bias 0 and its first dense layer as zeros.
+
+# (old_obs_dim, new_obs_dim) -> (insert position, count) in the obs vector.
+_OBS_LAYOUT_INSERTS = {(13, 15): (12, 2)}
+
+
+def _obs_index_map(old_dim: int, new_dim: int) -> list[int]:
+    """new-row index -> old-row index, -1 for rows that did not exist."""
+    if old_dim == new_dim:
+        return list(range(old_dim))
+    at, n = _OBS_LAYOUT_INSERTS[(old_dim, new_dim)]
+    return list(range(at)) + [-1] * n + list(range(at, old_dim))
+
+
+def _remap_rows(old: torch.Tensor, index_map: list[int], fill: float) -> torch.Tensor:
+    """Reindex the leading axis of ``old`` by ``index_map``; rows mapped
+    from -1 are filled with ``fill``."""
+    idx = torch.as_tensor(index_map)
+    out = old[idx.clamp(0, old.shape[0] - 1)].clone()
+    out[idx < 0] = fill
+    return out
+
+
+def warm_start_checkpoint(model_dir: str) -> str:
+    """The checkpoint directory a warm start from ``model_dir`` reads (the
+    layouts of ``_resolve_ckpt_path``).  A reference ``actor.pt`` directory
+    raises ``not_ported`` (ROADMAP A11); a JAX orbax checkpoint raises a
+    ``ValueError`` that names its conversion."""
+    from ..config.flags import not_ported
+
+    if os.path.exists(os.path.join(model_dir, "actor.pt")):
+        raise not_ported(f"a warm start from the reference's actor.pt weights ({model_dir})",
+                         "A11")
+    path = _resolve_ckpt_path(model_dir)
+    if not os.path.exists(os.path.join(path, STATE_FILE)):
+        norm = os.path.normpath(model_dir)
+        parts = norm.split(os.sep)
+        hint = ""
+        if "model_weights" in parts:
+            parts[parts.index("model_weights")] = "model_weights_torch"
+            hint = f" and warm-start from {os.sep.join(parts)}"
+        raise ValueError(
+            f"{path} holds no {STATE_FILE}: it is the JAX package's orbax checkpoint, not "
+            f"the torch port's; convert it with scripts/orbax_to_torch.py (on the CPU, with "
+            f"JAX){hint}")
+    return path
+
+
+def warm_start_params(model_dir: str, ts_new: TrainState, new_obs_dim: int) -> TrainState:
+    """Weights-only warm start (reference base_runner.py:179): ``ts_new``
+    with the actor's and critic's weights and the value normalizer of the
+    checkpoint at ``model_dir``.  Its optimizers stay as they are (fresh)
+    and the checkpoint's episode is not restored.  Where the checkpointed
+    actor took a narrower observation than ``ts_new``'s, its input LayerNorm
+    and first dense layer are remapped by ``_OBS_LAYOUT_INSERTS``.  Where the
+    value normalizers' kinds differ (PopArt against ValueNorm), the fresh
+    one is kept.  The JAX package's ``warm_start_params`` on the port's
+    layout."""
+    path = warm_start_checkpoint(model_dir)
+    state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    old_actor = dict(state["actor"])
+    new_actor = ts_new.params.actor.state_dict()
+    fc0 = "base.mlp.fc0.weight"
+    old_in, new_in = old_actor[fc0].shape[1], new_actor[fc0].shape[1]
+    if old_in != new_in:
+        nbd_dim = new_in - new_obs_dim  # GNN aggregate columns, after the obs
+        old_obs = old_in - nbd_dim
+        full = _obs_index_map(old_obs, new_obs_dim) + list(range(old_obs, old_in))
+        for k, fill in (("base.feature_norm.weight", 1.0), ("base.feature_norm.bias", 0.0)):
+            if k in old_actor:
+                old_actor[k] = _remap_rows(old_actor[k], full, fill)
+        old_actor[fc0] = _remap_rows(old_actor[fc0].T, full, 0.0).T.contiguous()
+    ts_new.params.actor.load_state_dict(old_actor)
+    ts_new.params.critic.load_state_dict(state["critic"])
+    rec, fresh = state["vn"], ts_new.vn
+    if rec is not None and fresh is not None:
+        if rec["kind"] != type(fresh).__name__:
+            # the reference's restore takes weights only anyway
+            print("warm start: value-norm type differs from checkpoint; "
+                  "keeping freshly initialized normalizer", flush=True)
+        else:
+            # tensors from the checkpoint on the fresh state's device and
+            # type, the constants (beta, epsilon) the fresh state's
+            ts_new.vn = dataclasses.replace(fresh, **{
+                k: v.to(getattr(fresh, k)) for k, v in rec["fields"].items()
+                if isinstance(v, torch.Tensor)})
+    return ts_new

@@ -1,6 +1,6 @@
-"""The shipped july checkpoint in the torch port's layout
-(``model_weights_torch/july/unicycle``, made by ``scripts/orbax_to_torch.py``
-from ``model_weights/july/unicycle/ckpt_1561``), on the CPU.
+"""The shipped checkpoints in the torch port's layout
+(``model_weights_torch/``, made by ``scripts/orbax_to_torch.py`` from
+``model_weights/``: july's ckpt_1561 and the four gated ones), on the CPU.
 
 The committed files must equal a fresh conversion (every tensor, dtype
 included); the restored policy must give the JAX policy's values, log-probs
@@ -81,6 +81,35 @@ def test_committed_checkpoint_equals_a_fresh_conversion(fresh):
     with open(os.path.join(COMMITTED, "latest.json")) as f:
         assert json.load(f) == {"episode": 1561, "path": "ckpt_1561"}
     assert _resolve_ckpt_path(COMMITTED) == os.path.join(COMMITTED, "ckpt_1561")
+
+
+GATED = ("rot_inv", "three_phase", "two_phase_5a", "two_phase_5a_low_collision")
+
+
+@pytest.mark.parametrize("name", GATED)
+def test_committed_gated_checkpoint_equals_a_fresh_conversion(name, tmp_path):
+    """Each converted gated checkpoint (``scripts/orbax_to_torch.py NAME``)
+    equals a fresh conversion: every tensor of its state, its pointer and
+    its flags; its JAX evaluations are there for the card (not rerun)."""
+    committed = orbax_to_torch.dst_of(name)
+    orbax_to_torch.convert(str(tmp_path), name)
+    _assert_same(_state(committed), _state(str(tmp_path)))
+    for fname in ("latest.json", "config.json"):
+        with open(os.path.join(committed, fname)) as f, open(tmp_path / fname) as g:
+            assert json.load(f) == json.load(g), fname
+    ckpt = orbax_to_torch.CHECKPOINTS[name][1]
+    with open(os.path.join(committed, "latest.json")) as f:
+        assert json.load(f) == {"episode": int(ckpt[5:]), "path": ckpt}
+    assert load_run_config(committed) == jax_run_config(
+        os.path.join(ROOT, orbax_to_torch.CHECKPOINTS[name][0]))
+    # tanh everywhere, as each config.yaml records
+    assert arch_act_flags(committed) == {
+        "use_ReLU": False, "embed_use_ReLU": False, "gnn_use_ReLU": False}
+    for fname, extra in orbax_to_torch.CHECKPOINTS[name][3].items():
+        with open(os.path.join(committed, fname)) as f:
+            rec = json.load(f)
+        assert rec["argv"] == orbax_to_torch.recipe(name) + list(extra)
+        assert [r["seed"] for r in rec["rows"]] == [100, 101, 102, 103]
 
 
 def test_config_json_holds_the_flags_of_config_yaml():

@@ -79,9 +79,30 @@ def test_built_configs_match_jax(name):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
 
 
+# the gated scenarios' names, as the shipped checkpoints' runs give them
+GATED = ["nav_graph_metered_single_corridor_rot_inv", "three_phase_graph", "two_phase_graph",
+         "old_two_graph"]
+
+
+@pytest.mark.parametrize("scenario_name", GATED)
+def test_gated_env_params_match_jax(scenario_name):
+    """The port's ``build_env_params`` equals the JAX package's for each
+    gated scenario name, on every field and derived property the port's
+    EnvParams carries."""
+    argv = ["--scenario_name", scenario_name, "--world_size", "4"] + FLOAT32
+    tenv = flags.build_env_params(flags.parse_all(argv))
+    jenv = jflags.build_env_params(jflags.parse_all(argv))
+    for f in dataclasses.fields(tenv):
+        assert _same(getattr(tenv, f.name), getattr(jenv, f.name)), f.name
+    for k in ("obs_dim", "node_feat_dim", "num_entities", "num_actions", "exit_back",
+              "randomize_tube_length", "spawn_jitter_scale", "spawn_spacing_div",
+              "cooldown_steps"):
+        assert getattr(tenv, k) == getattr(jenv, k), k
+    assert tenv.gated and tenv.node_feat_dim == 7
+
+
 REFUSED = {
-    "rot_inv": (["--scenario_name", "nav_graph_metered_single_corridor_rot_inv"], "A5"),
-    "three_phase": (["--scenario_name", "three_phase_graph"], "A5"),
+    "v4oct": (["--scenario_name", "nav_metered_one_goal_graph_rotate_tube_v4oct"], "A5"),
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
@@ -98,15 +119,20 @@ REFUSED = {
     "fuse_trunks": (["--fuse_gnn_trunks", "True"], "A11"),
     "curriculum": (["--use_curriculum", "True"], "A12"),
     "centralized_v_off": (["--use_centralized_V"], "A12"),
-    "warm_start": (["--warm_start_dir", "model_weights"], "A5"),
+    # a directory of the reference's actor.pt weights (made by the test)
+    "warm_start_actor_pt": (["--warm_start_dir", "{actor_pt}"], "A11"),
     "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], "A9"),
     "bfloat16": (["--compute_dtype", "bfloat16"], "A13"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refusals_name_their_roadmap_item(name, tmp_path):
+def test_refusals_name_their_roadmap_item(name, tmp_path, tmp_path_factory):
     argv, item = REFUSED[name]
+    if argv and "{actor_pt}" in argv:
+        src = tmp_path_factory.mktemp("reference_weights")
+        (src / "actor.pt").write_bytes(b"")
+        argv = [str(src) if a == "{actor_pt}" else a for a in argv]
     if argv is None:  # no flag selects the integrator; a namespace built in code may
         args = argparse.Namespace(**vars(flags.parse_all([])), integrator="rk45")
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
