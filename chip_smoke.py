@@ -37,6 +37,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -140,6 +141,20 @@ GATED_RECIPE_KEYS = ("scenario_name", "dynamics_type", "num_agents", "num_landma
                      "num_mini_batch", "data_chunk_length", "collision_rew", "goal_rew",
                      "formation_rew", "fair_rew", "world_size", "lr", "critic_lr",
                      "entropy_coef", "seed")
+# The env of the double integrator and v4oct on the card against the CPU:
+# these (scenario, vehicle) pairs at 256 envs in float64 through one
+# episode of the reference launcher's double integrator (25 steps,
+# metered_formation_rotate.sh:87-116), whose last step auto-resets every
+# env; the env's float64 parity bar (tests/test_golden_parity.py:143-161).
+# rk45 at 4,096 states of each vehicle.
+ENV_CARD_PAIRS = [("v4oct", "air_taxi"), ("v4oct", "double_integrator"),
+                  ("rotate_tube_july", "double_integrator"), ("rot_inv", "double_integrator")]
+ENV_CARD_ENVS, ENV_CARD_STEPS, ENV_TOL = 256, 25, 1e-9
+RK45_STATES = 4096
+# the train CLI on v4oct with the double integrator, at the flagship's
+# envs, epochs and chunks and the launcher's 25-step episode
+V4OCT = "nav_metered_one_goal_graph_rotate_tube_v4oct"
+V4OCT_EPISODES = 2
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
@@ -1173,34 +1188,39 @@ def main() -> int:
             raise AssertionError(f"card and CPU rollout steps disagree on {k}")
 
     # where the step's time goes, from a profiled short window
-    prof_steps = 5
-    prof_runner = Runner(env_params=ep, policy=policy, trainer=rollout_trainer,
-                         n_rollout_threads=N_ENVS, episode_length=prof_steps)
-    pc = prof_runner.init_carry(SEED + 4)
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        tw = time.perf_counter()
-        prof_runner.collect(ts, pc)
+
+    def collect_profile(runner_, ts_, seed, collect_seconds, prof_steps=5):
+        """A profiled collect of ``prof_steps`` steps of ``runner_``'s envs,
+        per step (its one bootstrap critic call spread over them); the busy
+        share divides the device time by the unprofiled step of a collect of
+        STEPS steps that took ``collect_seconds``."""
+        prof_runner = dataclasses.replace(runner_, episode_length=prof_steps)
+        pc = prof_runner.init_carry(seed)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - tw) * 1e3
-    avg = prof.key_averages()
-    dev_evts = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in dev_evts)
-    n_kern = sum(e.count for e in dev_evts)
-    trunk_us = sum(e.self_device_time_total for e in dev_evts if "gnn_trunk_fwd" in e.key)
-    launch_us = sum(e.self_cpu_time_total for e in avg if e.key == "cudaLaunchKernel")
-    # per step of the window (its one bootstrap critic call is spread over
-    # them); the busy share divides the device time by the unprofiled step
-    dev_ms_step = dev_us / 1e3 / prof_steps
-    profile = {
-        "steps": prof_steps, "profiled_wall_ms_per_step": wall_ms / prof_steps,
-        "device_ms_per_step": dev_ms_step,
-        "device_busy_share": dev_ms_step / (seconds * 1e3 / STEPS) if dev_us > 0 else None,
-        "kernels_per_step": n_kern / prof_steps,
-        "trunk_kernel_ms_per_step": trunk_us / 1e3 / prof_steps,
-        "cudaLaunchKernel_host_ms_per_step": launch_us / 1e3 / prof_steps,
-    }
+        with torch.profiler.profile(activities=acts) as prof:
+            tw = time.perf_counter()
+            prof_runner.collect(ts_, pc)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - tw) * 1e3
+        avg = prof.key_averages()
+        dev_evts = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in dev_evts)
+        n_kern = sum(e.count for e in dev_evts)
+        trunk_us = sum(e.self_device_time_total for e in dev_evts if "gnn_trunk_fwd" in e.key)
+        launch_us = sum(e.self_cpu_time_total for e in avg if e.key == "cudaLaunchKernel")
+        dev_ms_step = dev_us / 1e3 / prof_steps
+        return {
+            "steps": prof_steps, "profiled_wall_ms_per_step": wall_ms / prof_steps,
+            "device_ms_per_step": dev_ms_step,
+            "device_busy_share": (dev_ms_step / (collect_seconds * 1e3 / STEPS)
+                                  if dev_us > 0 else None),
+            "kernels_per_step": n_kern / prof_steps,
+            "trunk_kernel_ms_per_step": trunk_us / 1e3 / prof_steps,
+            "cudaLaunchKernel_host_ms_per_step": launch_us / 1e3 / prof_steps,
+        }
+
+    profile = collect_profile(runner, ts, SEED + 4, seconds)
     emit({"phase": "rollout", "envs": N_ENVS, "agents": ep.num_agents, "steps": STEPS,
           "init_carry_seconds": init_seconds, "collect_seconds": seconds,
           "wall_ms_per_step": seconds * 1e3 / STEPS,
@@ -1261,84 +1281,104 @@ def main() -> int:
     if changed < len(before):
         raise AssertionError(f"only {changed} of {len(before)} weight tensors changed")
 
-    # where the update's time goes: a collect, then a 2-epoch update
-    # unprofiled and profiled on its buffer
-    prof_epochs = 2
-    prof_trainer = GRMAPPOTrainer(policy, ppo_epoch=prof_epochs, data_chunk_length=CHUNK)
-    t0 = time.perf_counter()
-    tcarry, pbuf, _ = train_runner.collect(tts, tcarry)
-    torch.cuda.synchronize()
-    collect_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    prof_trainer.train(tts, pbuf)
-    torch.cuda.synchronize()
-    epoch_ms = (time.perf_counter() - t0) * 1e3 / prof_epochs
-    with torch.profiler.profile(activities=acts) as prof:
-        tw = time.perf_counter()
-        prof_trainer.train(tts, pbuf)
+    def update_profile_of(runner_, ts_, carry_):
+        """Where the update's time goes: a collect of ``runner_``'s, then a
+        2-epoch update unprofiled and profiled on its buffer.  Returns the
+        profile and the carry after the collect."""
+        prof_epochs = 2
+        prof_trainer = GRMAPPOTrainer(runner_.policy, ppo_epoch=prof_epochs,
+                                      data_chunk_length=CHUNK)
+        t0 = time.perf_counter()
+        carry_, pbuf, _ = runner_.collect(ts_, carry_)
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - tw) * 1e3
-    avg = prof.key_averages()
-    dev_evts = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in dev_evts)
-    by = lambda key: sum(e.self_device_time_total for e in dev_evts if key in e.key)
-    dev_ms_epoch = dev_us / 1e3 / prof_epochs
-    top = sorted(dev_evts, key=lambda e: -e.self_device_time_total)[:8]
-    update_profile = {
-        "epochs": prof_epochs, "unprofiled_wall_ms_per_epoch": epoch_ms,
-        "profiled_wall_ms_per_epoch": prof_wall_ms / prof_epochs,
-        "device_ms_per_epoch": dev_ms_epoch,
-        "device_busy_share": dev_ms_epoch / epoch_ms if dev_us > 0 else None,
-        "kernels_per_epoch": sum(e.count for e in dev_evts) / prof_epochs,
-        "trunk_fwd_kernel_ms_per_epoch": by("gnn_trunk_fwd") / 1e3 / prof_epochs,
-        "trunk_bwd_kernel_ms_per_epoch": by("gnn_trunk_bwd") / 1e3 / prof_epochs,
-        "cudaLaunchKernel_host_ms_per_epoch": sum(
-            e.self_cpu_time_total for e in avg if e.key == "cudaLaunchKernel") / 1e3 / prof_epochs,
-        "top_device_ms_per_epoch": {e.key[:60]: e.self_device_time_total / 1e3 / prof_epochs
-                                    for e in top},
-        "collect_seconds": collect_s,
-    }
+        collect_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prof_trainer.train(ts_, pbuf)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3 / prof_epochs
+        with torch.profiler.profile(activities=acts) as prof:
+            tw = time.perf_counter()
+            prof_trainer.train(ts_, pbuf)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - tw) * 1e3
+        avg = prof.key_averages()
+        dev_evts = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in dev_evts)
+        by = lambda key: sum(e.self_device_time_total for e in dev_evts if key in e.key)
+        dev_ms_epoch = dev_us / 1e3 / prof_epochs
+        top = sorted(dev_evts, key=lambda e: -e.self_device_time_total)[:8]
+        return {
+            "epochs": prof_epochs, "unprofiled_wall_ms_per_epoch": epoch_ms,
+            "profiled_wall_ms_per_epoch": prof_wall_ms / prof_epochs,
+            "device_ms_per_epoch": dev_ms_epoch,
+            "device_busy_share": dev_ms_epoch / epoch_ms if dev_us > 0 else None,
+            "kernels_per_epoch": sum(e.count for e in dev_evts) / prof_epochs,
+            "trunk_fwd_kernel_ms_per_epoch": by("gnn_trunk_fwd") / 1e3 / prof_epochs,
+            "trunk_bwd_kernel_ms_per_epoch": by("gnn_trunk_bwd") / 1e3 / prof_epochs,
+            "cudaLaunchKernel_host_ms_per_epoch": sum(
+                e.self_cpu_time_total for e in avg
+                if e.key == "cudaLaunchKernel") / 1e3 / prof_epochs,
+            "top_device_ms_per_epoch": {e.key[:60]: e.self_device_time_total / 1e3 / prof_epochs
+                                        for e in top},
+            "collect_seconds": collect_s,
+        }, carry_
 
-    # one update, card (kernels) vs CPU (plain), from the same buffer and
-    # weights, with tanh activations everywhere
-    tanh_all = ModelConfig(max_edge_dist=cfg.max_edge_dist, use_relu=False,
-                           embed_use_relu=False, gnn_use_relu=False)
-    sides = {}
-    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        pol = GRMAPPOPolicy(tanh_all, dims, device=d)
-        tr = GRMAPPOTrainer(pol, ppo_epoch=1, data_chunk_length=CHUNK)
-        sides[side] = (tr, tr.init_state(SEED + 7))
-    tr_c, ts_c = sides["card"]
-    cmp_runner = Runner(env_params=ep, policy=tr_c.policy, trainer=tr_c,
-                        n_rollout_threads=CMP_ENVS, episode_length=STEPS)
-    _, buf_c, _ = cmp_runner.collect(ts_c, cmp_runner.init_carry(SEED + 7))
-    buf_h = dataclasses.replace(buf_c, **{
-        f.name: getattr(buf_c, f.name).cpu() for f in dataclasses.fields(buf_c)
-        if getattr(buf_c, f.name) is not None})
-    first = {}
-    for side, buf in (("card", buf_c), ("cpu", buf_h)):
-        tr, st = sides[side]
-        batch = tr._time_major(tr.chunks(st, buf))
-        vn = vn_update(st.vn, batch["returns"].reshape(-1, 1))
-        named = [(f"{m}.{n}", p) for m in ("actor", "critic")
-                 for n, p in getattr(st.params, m).named_parameters()]
-        total, _ = tr.loss(st.params, vn, batch)
-        grads = torch.autograd.grad(total, [p for _, p in named], allow_unused=True)
-        first[side] = {n: (torch.zeros_like(p) if gr is None else gr).detach().cpu()
-                       for (n, p), gr in zip(named, grads)}
-    grad_err, worst_ratio = {}, 0.0
-    for n, want in first["cpu"].items():
-        err = (first["card"][n] - want).abs().max().item()
-        bar = GRAD_RTOL * want.abs().max().item() + GRAD_ATOL
-        worst_ratio = max(worst_ratio, err / bar)
-        grad_err[n] = err
-        if err > bar:
-            raise AssertionError(f"card and CPU update gradients disagree on {n}: {err} > {bar}")
-    infos = {side: {k: v.item() for k, v in tr.train(st, buf_c if side == "card" else buf_h)[1].items()}
-             for side, (tr, st) in sides.items()}
-    for k, want in infos["cpu"].items():
-        if abs(infos["card"][k] - want) > LOSS_RTOL * abs(want) + LOSS_ATOL:
-            raise AssertionError(f"card and CPU update disagree on {k}: {infos['card'][k]} vs {want}")
+    update_profile, tcarry = update_profile_of(train_runner, tts, tcarry)
+
+    def update_card_vs_cpu(env_params):
+        """One update, card (kernels) vs CPU (plain), from the same buffer
+        (a collect of CMP_ENVS envs of ``env_params`` on the card) and
+        weights, with tanh activations everywhere: the first epoch's
+        gradients at the JAX bar, per leaf, and the update's losses and
+        norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst gradient's ratio
+        to its bar, the largest gradient error and both sides' train info."""
+        tanh_all = ModelConfig(max_edge_dist=env_params.cfg.coordination_range,
+                               use_relu=False, embed_use_relu=False, gnn_use_relu=False)
+        dims_ = PolicyDims(env_params.obs_dim, env_params.obs_dim * env_params.num_agents,
+                           env_params.num_entities, env_params.node_feat_dim,
+                           env_params.num_actions)
+        sides = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            pol = GRMAPPOPolicy(tanh_all, dims_, device=d)
+            tr = GRMAPPOTrainer(pol, ppo_epoch=1, data_chunk_length=CHUNK)
+            sides[side] = (tr, tr.init_state(SEED + 7))
+        tr_c, ts_c = sides["card"]
+        cmp_runner = Runner(env_params=env_params, policy=tr_c.policy, trainer=tr_c,
+                            n_rollout_threads=CMP_ENVS, episode_length=STEPS)
+        _, buf_c, _ = cmp_runner.collect(ts_c, cmp_runner.init_carry(SEED + 7))
+        buf_h = dataclasses.replace(buf_c, **{
+            f.name: getattr(buf_c, f.name).cpu() for f in dataclasses.fields(buf_c)
+            if getattr(buf_c, f.name) is not None})
+        first = {}
+        for side, buf in (("card", buf_c), ("cpu", buf_h)):
+            tr, st = sides[side]
+            batch = tr._time_major(tr.chunks(st, buf))
+            vn = vn_update(st.vn, batch["returns"].reshape(-1, 1))
+            named = [(f"{m}.{n}", p) for m in ("actor", "critic")
+                     for n, p in getattr(st.params, m).named_parameters()]
+            total, _ = tr.loss(st.params, vn, batch)
+            grads = torch.autograd.grad(total, [p for _, p in named], allow_unused=True)
+            first[side] = {n: (torch.zeros_like(p) if gr is None else gr).detach().cpu()
+                           for (n, p), gr in zip(named, grads)}
+        grad_err, worst_ratio = {}, 0.0
+        for n, want in first["cpu"].items():
+            err = (first["card"][n] - want).abs().max().item()
+            bar = GRAD_RTOL * want.abs().max().item() + GRAD_ATOL
+            worst_ratio = max(worst_ratio, err / bar)
+            grad_err[n] = err
+            if err > bar:
+                raise AssertionError(f"card and CPU update gradients disagree on {n}: "
+                                     f"{err} > {bar}")
+        infos = {side: {k: v.item() for k, v in tr.train(
+                    st, buf_c if side == "card" else buf_h)[1].items()}
+                 for side, (tr, st) in sides.items()}
+        for k, want in infos["cpu"].items():
+            if abs(infos["card"][k] - want) > LOSS_RTOL * abs(want) + LOSS_ATOL:
+                raise AssertionError(f"card and CPU update disagree on {k}: "
+                                     f"{infos['card'][k]} vs {want}")
+        return worst_ratio, max(grad_err.values()), infos
+
+    worst_ratio, max_grad_err, infos = update_card_vs_cpu(ep)
     mean_of = lambda key: statistics.mean(e[key] for e in episodes)
     emit({"phase": "train", "envs": TRAIN_ENVS, "agents": ep.num_agents, "steps": STEPS,
           "ppo_epoch": PPO_EPOCH, "num_mini_batch": 1, "data_chunk_length": CHUNK,
@@ -1347,7 +1387,7 @@ def main() -> int:
           "env_steps_per_s": mean_of("env_steps_per_s"),
           "weight_tensors_changed": changed, "update_profile": update_profile,
           "card_vs_cpu": {"envs": CMP_ENVS, "first_epoch_grad_worst_ratio_to_bar": worst_ratio,
-                          "first_epoch_grad_max_abs_err": max(grad_err.values()),
+                          "first_epoch_grad_max_abs_err": max_grad_err,
                           "train_info_card": infos["card"], "train_info_cpu": infos["cpu"]}})
 
     # ---------------------------------------------------------------- cli
@@ -1681,6 +1721,210 @@ def main() -> int:
     if any(gt_cfg[k] for k in ("use_ReLU", "embed_use_ReLU", "gnn_use_ReLU")):
         raise AssertionError("the gated training did not adopt the source's tanh activations")
 
+    # ---------------------------------------------------------------- env_card
+    # the env of this slice on the card against the CPU: one port reset per
+    # pair made on the CPU and moved to the card, the same numpy actions on
+    # both; obs, node_obs and adj held where no env reset, reward and done
+    # everywhere.  The last step hits the time limit and auto-resets every
+    # env from each device's own generator, so the fresh episodes differ;
+    # v4oct's frozen_pos must come through the reset unchanged on both.
+    # Nothing else of these paths draws (v4oct never freezes an agent, the
+    # double integrator's freeze zeroes its velocity).
+    import numpy as np
+
+    from contracts_marl_aam_corridors_tpu_torch.envs import dynamics as dyn_mod
+
+    t_phase = time.perf_counter()
+    to_dev = lambda st: map_state(lambda x: x.to(dev), st)
+    cpu = torch.device("cpu")
+    env_rows = []
+    for scen, veh in ENV_CARD_PAIRS:
+        p_ = EnvParams(cfg=vehicle_config(veh), scenario=scen, episode_length=ENV_CARD_STEPS)
+        g_c = torch.Generator().manual_seed(SEED + 11)
+        g_d = torch.Generator(device=dev).manual_seed(SEED + 11)
+        s_c, _ = env_mod.reset(p_, ENV_CARD_ENVS, g_c, cpu, torch.float64)
+        s_d = to_dev(s_c)
+        rng = np.random.RandomState(SEED + 11)
+        err = dict.fromkeys(("obs", "node_obs", "adj", "reward"), 0.0)
+        done_equal, early_resets = True, 0
+        t0 = time.perf_counter()
+        for t in range(ENV_CARD_STEPS):
+            act = torch.as_tensor(rng.randint(0, p_.num_actions, (ENV_CARD_ENVS, p_.num_agents)))
+            before_c, before_d = s_c, s_d
+            s_d, ts_d = env_mod.step(p_, s_d, act.to(dev), g_d)
+            s_c, ts_c = env_mod.step(p_, s_c, act, g_c)
+            reset = ts_c.done.all(dim=1)
+            done_equal &= torch.equal(ts_d.done.cpu(), ts_c.done)
+            for k in err:
+                a, b = getattr(ts_d, k).cpu(), getattr(ts_c, k)
+                if k != "reward":
+                    a, b = a[~reset], b[~reset]
+                if a.numel():
+                    err[k] = max(err[k], (a - b).abs().max().item())
+            if reset.any() and t < ENV_CARD_STEPS - 1:
+                early_resets += 1
+                s_d = to_dev(s_c)  # go on from the CPU's draw
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        frozen_kept = s_c.frozen_pos is None or (
+            torch.equal(s_c.frozen_pos, before_c.frozen_pos)
+            and torch.equal(s_d.frozen_pos, before_d.frozen_pos)
+            and torch.equal(s_d.frozen_pos.cpu(), s_c.frozen_pos))
+        fresh = bool(reset.all()) and bool((s_c.t == 0).all()) and bool((s_d.t == 0).all())
+        ok = done_equal and max(err.values()) <= ENV_TOL and frozen_kept and fresh
+        env_rows.append({"scenario": scen, "vehicle": veh, "envs": ENV_CARD_ENVS,
+                         "steps": ENV_CARD_STEPS, "max_abs_err": err, "done_equal": done_equal,
+                         "early_resets": early_resets, "auto_reset_all": fresh,
+                         "frozen_pos_kept": frozen_kept, "seconds_card_and_cpu": pair_s,
+                         "ok": ok})
+    env_card_s = time.perf_counter() - t_phase
+    emit({"phase": "env_card", "tol": ENV_TOL, "pairs": env_rows, "phase_seconds": env_card_s})
+    if not all(r["ok"] for r in env_rows):
+        raise AssertionError(f"the card's env differs from the CPU's: "
+                             f"{[r for r in env_rows if not r['ok']]}")
+
+    # ---------------------------------------------------------------- rk45_card
+    # scipy's RK45 replica at 4,096 states of each vehicle, card against CPU
+    # in float64: the states before and after the clamp, and how many
+    # states took a different number of accepted steps on the two devices
+    t_phase = time.perf_counter()
+    rk_rows = []
+    for veh in ("air_taxi", "unicycle_vehicle", "double_integrator"):
+        vc = vehicle_config(veh)
+        g = torch.Generator().manual_seed(SEED + 12)
+        u = lambda *shape: torch.rand(shape, generator=g, dtype=torch.float64)
+        lo_hi = lambda lo, hi, *shape: lo + (hi - lo) * u(*shape)
+        n = RK45_STATES
+        # the ranges of the rk45 tests, controls with the decoder's x5
+        if veh == "double_integrator":
+            y0 = lo_hi(-2, 2, n, 4)
+            a = lo_hi(vc.accel_min, vc.accel_max, n, 2) * 5
+        else:
+            y0 = torch.stack([lo_hi(-2, 2, n), lo_hi(-2, 2, n), lo_hi(-math.pi, math.pi, n),
+                              lo_hi(vc.v_min, vc.v_max, n)], dim=-1)
+            a = torch.stack([lo_hi(-vc.angular_rate_max, vc.angular_rate_max, n) * 5,
+                             lo_hi(vc.accel_min, vc.accel_max, n) * 5], dim=-1)
+        y0_d, a_d = y0.to(dev), a.to(dev)
+        dyn_mod.rk45_solve(y0_d, a_d, vc.dt, vc.dynamics)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_d, n_d = dyn_mod.rk45_solve(y0_d, a_d, vc.dt, vc.dynamics)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        y_c, n_c = dyn_mod.rk45_solve(y0, a, vc.dt, vc.dynamics)
+        st_d, st_c = dyn_mod.step_rk45(y0_d, a_d, vc), dyn_mod.step_rk45(y0, a, vc)
+        max_err = max((y_d.cpu() - y_c).abs().max().item(), (st_d.cpu() - st_c).abs().max().item())
+        steps_differ = int((n_d.cpu() != n_c).sum())
+        rk_rows.append({
+            "vehicle": veh, "states": n, "max_abs_err": max_err,
+            "states_with_other_step_counts": steps_differ,
+            "accepted_steps_min_max": [int(n_c.min()), int(n_c.max())],
+            "closed_form_vs_rk45_max_abs": (dyn_mod.step_closed_form(y0, a, vc)
+                                            - st_c).abs().max().item(),
+            "card_wall_ms": card_ms, "ok": max_err <= ENV_TOL})
+    rk45_s = time.perf_counter() - t_phase
+    emit({"phase": "rk45_card", "tol": ENV_TOL, "vehicles": rk_rows, "phase_seconds": rk45_s})
+    if not all(r["ok"] for r in rk_rows):
+        raise AssertionError(f"the card's rk45 differs from the CPU's: {rk_rows}")
+
+    # ---------------------------------------------------------------- v4oct_train
+    # the train entry point on v4oct with the double integrator (the
+    # launcher's 25-step episode) at the default model's full width: two
+    # episodes of TRAIN_ENVS envs, every trunk call through rows 1 and 2;
+    # then, from the trained state, a rollout step at N_ENVS envs and an
+    # update epoch profiled as the rollout and train phases profile july's,
+    # and one update card (kernels) against CPU (plain versions)
+    t_phase = time.perf_counter()
+    v4_argv = ["--scenario_name", V4OCT, "--dynamics_type", "double_integrator",
+               "--episode_length", str(STEPS), "--num_agents", str(ep.num_agents),
+               "--n_rollout_threads", str(TRAIN_ENVS), "--ppo_epoch", str(PPO_EPOCH),
+               "--num_mini_batch", "1", "--data_chunk_length", str(CHUNK), "--log_interval",
+               "1", "--seed", str(SEED), "--compute_dtype", "float32",
+               "--num_env_steps", str(V4OCT_EPISODES * STEPS * TRAIN_ENVS)]
+    with tempfile.TemporaryDirectory() as v4_tmp:
+        for f in all_counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        v4_dir, v4_ts = cli_train.main(v4_argv + ["--run_dir", v4_tmp])
+        torch.cuda.synchronize()
+        v4_seconds = time.perf_counter() - t0
+        v4_launches = [f.launches for f in all_counters]
+        v4_want = [V4OCT_EPISODES * fwd_expected, V4OCT_EPISODES * bwd_expected, 0, 0, 0]
+        if v4_launches != v4_want:
+            raise AssertionError(f"the v4oct training launched (fwd, bwd, dual fwd, dual bwd, "
+                                 f"v2) {v4_launches}, expected {v4_want}")
+        with open(Path(v4_dir) / "metrics.jsonl") as f:
+            v4_recs = [json.loads(line) for line in f]
+        v4_train_recs = [r for r in v4_recs if "value_loss" in r]
+        if len(v4_train_recs) != V4OCT_EPISODES or not all(
+                v == v and abs(v) != float("inf") for r in v4_recs for v in r.values()):
+            raise AssertionError(f"the v4oct training logged {v4_recs}")
+        v4_cfg = json.loads((Path(v4_dir) / "models" / "config.json").read_text())
+
+        v4_env, _, _, v4_runner = cli_train.build(parse_all(v4_argv))
+        roll = dataclasses.replace(v4_runner, n_rollout_threads=N_ENVS)
+        dataclasses.replace(roll, episode_length=2).collect(v4_ts, roll.init_carry(SEED + 3))
+        c0 = roll.init_carry(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, v4_buf, _ = roll.collect(v4_ts, c0)
+        torch.cuda.synchronize()
+        v4_collect_s = time.perf_counter() - t0
+        for k in ("obs", "node_obs", "adj", "rewards", "value_preds", "returns"):
+            if not torch.isfinite(getattr(v4_buf, k)).all():
+                raise AssertionError(f"v4oct buffer {k} is not finite")
+        v4_profile = collect_profile(roll, v4_ts, SEED + 4, v4_collect_s)
+        v4_update, _ = update_profile_of(v4_runner, v4_ts, v4_runner.init_carry(SEED + 6))
+        v4_ratio, v4_grad_err, v4_infos = update_card_vs_cpu(v4_env)
+        v4_train_s = time.perf_counter() - t_phase
+        emit({"phase": "v4oct_train", "argv": v4_argv, "episodes": V4OCT_EPISODES,
+              "seconds": v4_seconds,
+              "episode_seconds": [b - a for a, b in zip(
+                  [0.0] + [r["wall_s"] for r in v4_train_recs[:-1]],
+                  [r["wall_s"] for r in v4_train_recs])],
+              "trunk_launches": {"forward": v4_launches[0], "backward": v4_launches[1],
+                                 "expected": v4_want[:2]},
+              "recorded": {k: v4_cfg[k] for k in ("scenario_name", "dynamics_type",
+                                                  "episode_length", "total_actions")},
+              "num_actions": v4_env.num_actions,
+              "last_episode": {k: v4_train_recs[-1][k] for k in (
+                  "average_episode_rewards", "value_loss", "policy_loss", "env_steps_per_sec")},
+              "rollout": {"envs": N_ENVS, "steps": STEPS, "collect_seconds": v4_collect_s,
+                          "wall_ms_per_step": v4_collect_s * 1e3 / STEPS,
+                          "env_steps_per_s": N_ENVS * STEPS / v4_collect_s,
+                          "profile": v4_profile},
+              "update_profile": v4_update,
+              "july_beside": {"rollout_wall_ms_per_step": seconds * 1e3 / STEPS,
+                              "rollout_profile": profile, "update_profile": update_profile},
+              "card_vs_cpu": {"envs": CMP_ENVS, "first_epoch_grad_worst_ratio_to_bar": v4_ratio,
+                              "first_epoch_grad_max_abs_err": v4_grad_err,
+                              "train_info_card": v4_infos["card"],
+                              "train_info_cpu": v4_infos["cpu"]},
+              "phase_seconds": v4_train_s})
+
+        # ------------------------------------------------------------ v4oct_eval
+        # the eval entry point on the checkpoint the v4oct training wrote
+        t_phase = time.perf_counter()
+        v4_ev_argv = ["--model_dir", str(Path(v4_dir) / "models"), "--scenario_name", V4OCT,
+                      "--num_agents", str(ep.num_agents), "--episode_length", str(STEPS),
+                      "--render_episodes", "2", "--run_dir", str(Path(v4_tmp) / "eval")]
+        for f in all_counters:
+            f.launches = 0
+        v4_rows = cli_eval.main(v4_ev_argv)
+        torch.cuda.synchronize()
+        v4_ev_launches = [f.launches for f in all_counters]
+        v4_eval_s = time.perf_counter() - t_phase
+    finite = all(v == v and abs(v) != float("inf") for r in v4_rows for v in r.values())
+    emit({"phase": "v4oct_eval", "argv": ["--model_dir", "<v4oct_train's models>"]
+          + v4_ev_argv[2:-2], "rows": v4_rows, "finite": finite,
+          "trunk_launches": v4_ev_launches, "phase_seconds": v4_eval_s})
+    # v4oct's agents never freeze, so each episode runs to its time limit:
+    # one row-1 launch a step, render episodes x episode length in all
+    if (len(v4_rows) != 2 or not finite or v4_ev_launches[1:] != [0] * 4
+            or v4_ev_launches[0] != 2 * STEPS):
+        raise AssertionError(f"cli.eval on the v4oct checkpoint gave {len(v4_rows)} rows "
+                             f"(finite {finite}) and launched {v4_ev_launches}")
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -1689,7 +1933,8 @@ def main() -> int:
         "launches": episodes[-1]["forward_launches"], "rollout_launches": launches,
         "eval_launches": eval_launches, "checkpoint_eval_launches": ck_launches[0],
         "gated_checkpoint_eval_launches": {k: v["launches"] for k, v in gated_ck.items()},
-        "gated_train_launches": gt_fl,
+        "gated_train_launches": gt_fl, "v4oct_train_launches": v4_launches[0],
+        "v4oct_eval_launches": v4_ev_launches[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
@@ -1700,6 +1945,7 @@ def main() -> int:
         "source": f"{PACKAGE}/csrc/gnn_trunk_bwd.cu",
         "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:594",
         "launches": episodes[-1]["backward_launches"], "gated_train_launches": gt_bl,
+        "v4oct_train_launches": v4_launches[1],
         "max_abs_err": bwd_max_err,
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,

@@ -304,20 +304,15 @@ def build_env_params(args):
     """argparse.Namespace -> the port's ``EnvParams`` (the JAX package's
     ``build_env_params``, :274).  As there, ``args.max_edge_dist`` becomes the
     vehicle's coordination range (the reference's ``make_world`` overwrites
-    it, july:242).  Raises ``NotImplementedError`` for what the port lacks."""
+    it, july:242), and no flag picks the integrator: ``closed_form`` unless
+    ``EnvParams`` is built in code.  Raises ``NotImplementedError`` for what
+    the port lacks."""
     from ..envs.types import EnvParams
     from .physics import vehicle_config
 
     scenario = scenario_kind(args.scenario_name)
     if scenario.startswith("sequential") or scenario == "fairassign":
         raise not_ported(f"the {scenario} scenario", "A7")
-    if scenario == "v4oct":
-        raise not_ported(f"the {scenario} scenario", "A5")
-    if args.dynamics_type == "double_integrator":
-        raise not_ported(f"--dynamics_type {args.dynamics_type}", "A5")
-    # the parser has no integrator flag; a namespace built in code may carry one
-    if getattr(args, "integrator", "closed_form") != "closed_form":
-        raise not_ported(f"the {args.integrator} integrator", "A5")
     if args.num_obstacles or args.num_walls:
         raise not_ported("obstacles and walls", "A5")
     if args.formation_type != "point":

@@ -1,6 +1,6 @@
 """The rotated-corridor scenario step on a batch of envs (port of
-``envs/corridor.py``: ``rotate_tube_july`` and the exit-gated rot_inv,
-two_phase and three_phase).
+``envs/corridor.py``: ``rotate_tube_july``, the exit-gated rot_inv,
+two_phase and three_phase, and v4oct).
 
 Port of the composition of ``MultiAgentGraphEnv.step``
 (multiagent/environment.py:1021-1063), ``World.step``
@@ -24,8 +24,14 @@ The exit-gated scenarios round through float32 at the reference's exact
 sites (``_f32r``: rot_inv:1469-1556, 1690-1740), which the float64 parity
 with the JAX package needs; in float32 those roundings are no-ops.
 
-v4oct, sequential, fairassign, obstacles, walls and the safety filter are
-not ported yet.
+v4oct's observation and reward read a position cache filled once, at the
+first reset (``EnvState.frozen_pos``); its phase is 0 or 1 and its agents
+never freeze.  Every vehicle model runs in every scenario: heading, speed
+and velocity come from ``dynamics.heading_of``/``speed_of``/``velocity_of``,
+and the double integrator's freeze zeroes the velocity without a draw.
+
+Sequential, fairassign, obstacles, walls and the safety filter are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -143,8 +149,8 @@ def _gated_obs(params: EnvParams, state: EnvState, values: Tensor) -> Tensor:
     exit distance/L, (cos, sin heading error), phase]."""
     n = params.num_agents
     pos = values[..., :2]
-    heading = values[..., 2]
-    speed = dynamics.speed_of(values)
+    heading = dynamics.heading_of(values, params.cfg)
+    speed = dynamics.speed_of(values, params.cfg)
     tube = state.tube
     phase = _gated_phase(params, tube, pos, state.prev_phase, state.phase_reached)
 
@@ -202,8 +208,8 @@ def _node_obs_gated(params: EnvParams, state: EnvState, values: Tensor, i: int) 
     # positions and velocities are cast to float32 BEFORE the relative
     # subtraction (rot_inv:1702-1715)
     pos = _f32r(values[..., :2])
-    vel = _f32r(dynamics.velocity_of(values))
-    heading_i = values[:, i, 2][:, None]
+    vel = _f32r(dynamics.velocity_of(values, params.cfg))
+    heading_i = dynamics.heading_of(values[:, i], params.cfg)[:, None]
     lm = _f32r(state.landmark_pos)
     entity_pos = torch.cat([pos, lm], dim=1)
     entity_vel = torch.cat([vel, vel.new_zeros(B, l, 2)], dim=1)
@@ -264,7 +270,7 @@ def _reward_one_agent_gated(
         rew = rew - params.collision_rew * colliding.sum(dim=-1).to(dtype)
 
     # front/back spacing neighbours by own heading (rot_inv:1149-1161)
-    heading = values[:, i, 2].clone()
+    heading = dynamics.heading_of(values[:, i], cfg)
     rel = pos - pos_i[:, None]
     proj_h = rel[..., 0] * torch.cos(heading)[:, None] + rel[..., 1] * torch.sin(heading)[:, None]
     front_mask = not_self & (proj_h > 0)
@@ -353,14 +359,9 @@ def _reward_one_agent_gated(
         state.goal_tracker[:, i] = torch.where(
             newly, state.goal_match[:, i], state.goal_tracker[:, i])
 
-    # the freeze resets the velocity (core.py:324-333): a fresh heading
-    # theta ~ U(0, 2pi) at speed v_min
+    # the freeze resets the velocity (core.py:324-333)
     row = values[:, i]
-    theta = (2 * math.pi) * torch.rand(row.shape[0], generator=gen, dtype=dtype, device=dev)
-    reset_row = torch.stack(
-        [row[:, 0], row[:, 1], theta, torch.full_like(theta, cfg.v_min)], dim=-1
-    )
-    values[:, i] = torch.where(newly[:, None], reset_row, row)
+    values[:, i] = torch.where(newly[:, None], dynamics.stopped_row(row, cfg, gen), row)
     state.status[:, i] = status_i | newly
 
     # conformance / phase_reached / regression (rot_inv:1306-1325)
@@ -399,15 +400,22 @@ def observations(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
         return _observations_gated(params, state)
     n = params.num_agents
     pos = state.agent_states[..., :2]
-    vel = dynamics.velocity_of(state.agent_states)
+    vel = dynamics.velocity_of(state.agent_states, params.cfg)
     goal = _gather_rows(state.landmark_pos, state.goal_match)
     rel_goal = goal - pos
     occupied = torch.gather(state.occupied, 1, state.goal_match)[..., None]
-    neighbors = dist_ops.two_nearest_neighbors(pos)
-    cooldown = _decrement_cooldown(state.entry_cooldown)
-    phase, new_prev = tube_mod.agent_phase(
-        state.tube, pos, state.prev_phase, params.gate_front_ratio, params.gate_back_ratio
-    )
+    if params.scenario == "v4oct":
+        # stale-cache neighbours (v4oct:1290-1308); v4oct has no entry
+        # cooldown and never advances previous_phase (v4oct:938, dead code)
+        neighbors = _v4oct_two_nearest(params, state, pos)
+        phase = tube_mod.agent_phase_v4oct(state.tube, pos)
+        cooldown, new_prev = state.entry_cooldown, state.prev_phase
+    else:
+        neighbors = dist_ops.two_nearest_neighbors(pos)
+        cooldown = _decrement_cooldown(state.entry_cooldown)
+        phase, new_prev = tube_mod.agent_phase(
+            state.tube, pos, state.prev_phase, params.gate_front_ratio, params.gate_back_ratio
+        )
     tube = state.tube
     B = pos.shape[0]
     obs = torch.cat(
@@ -435,7 +443,7 @@ def _node_obs_for_agent(params: EnvParams, state: EnvState, values: Tensor, i: i
         return _node_obs_gated(params, state, values, i)
     n, l = params.num_agents, params.num_landmarks
     pos = values[..., :2]
-    vel = dynamics.velocity_of(values)
+    vel = dynamics.velocity_of(values, params.cfg)
     B = pos.shape[0]
     entity_pos = _entity_positions(pos, state)
     entity_vel = torch.cat([vel, vel.new_zeros(B, l, 2)], dim=1)
@@ -466,6 +474,58 @@ def masked_adjacency(params: EnvParams, state: EnvState, values: Tensor) -> Tens
     return adj * keep[:, :, None] * keep[:, None, :]
 
 
+def _v4oct_two_nearest(params: EnvParams, state: EnvState, pos: Tensor) -> Tensor:
+    """Each agent's two nearest neighbours (B, n, 4), ranked by the pairwise
+    distances of v4oct's stale cache; the vectors are the cached neighbour
+    position minus the CURRENT ego position (v4oct:1296-1308).  With two
+    agents the second slot is the agent itself at distance inf: zero."""
+    n = params.num_agents
+    B = pos.shape[0]
+    frozen = state.frozen_pos
+    d = _norm(frozen[:, None, :, :] - frozen[:, :, None, :])  # [b, i, j] = |f_j - f_i|
+    d = torch.where(torch.eye(n, dtype=torch.bool, device=pos.device), math.inf, d)
+    order = torch.argsort(d, dim=-1, stable=True)[..., :2]  # (B, n, 2), jnp.argsort's ties
+    rel = _gather_rows(frozen, order.reshape(B, -1)).reshape(B, n, -1, 2) - pos[:, :, None, :]
+    valid = torch.isfinite(torch.gather(d, 2, order))
+    return (rel * valid[..., None]).reshape(B, n, -1)
+
+
+def _reward_one_agent_v4oct(params: EnvParams, state: EnvState, values: Tensor,
+                            i: int) -> Tensor:
+    """v4oct ``reward`` for agent ``i`` (v4oct:883-938; all after the
+    mid-function ``return`` is dead code).  Writes ``steps_in_corridor`` of
+    ``state`` in place and nothing else:
+
+    * agent collisions test the CACHED positions and ``break`` at the first
+      hit: at most one -4*collision_rew penalty, fixed as agents move
+      (v4oct:893-900, 838-841), on squared distances (dist2 < sep2);
+    * phase 0 pays -dist(entrance), phase 1 -dist(exit); phase 2 and the
+      goal branch are unreachable, so no agent freezes;
+    * no reward clip and no phase_reached/conformance/spacing bookkeeping.
+    """
+    cfg = params.cfg
+    dtype = values.dtype
+    pos_i = values[:, i, :2]
+    tube = state.tube
+    cur = tube_mod.agent_phase_v4oct(tube, pos_i[:, None])[:, 0]
+
+    frozen = state.frozen_pos
+    diff = frozen - frozen[:, i : i + 1]
+    not_self = torch.arange(params.num_agents, device=values.device) != i
+    colliding = (
+        (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] < cfg.separation_distance**2)
+        & ~state.status
+        & ~state.status[:, i : i + 1]
+        & not_self
+    )
+    rew = -(params.collision_rew * 4) * colliding.any(dim=-1).to(dtype)
+    is_p1 = (cur == 1).to(dtype)
+    rew = rew - (cur == 0).to(dtype) * _norm(tube.entrance - pos_i)
+    rew = rew - is_p1 * _norm(tube.exit - pos_i)
+    state.steps_in_corridor[:, i] += is_p1
+    return rew
+
+
 def _reward_one_agent(
     params: EnvParams, state: EnvState, values: Tensor, i: int, gen: torch.Generator
 ) -> Tensor:
@@ -473,10 +533,13 @@ def _reward_one_agent(
     :1105-1221).  Writes the ``_REWARD_WRITES`` fields of ``state`` and row
     ``i`` of ``values`` in place; must run in agent-id order, since it reads
     the status and velocities earlier agents wrote this step.  The gated
-    scenarios take ``_reward_one_agent_gated``.
+    scenarios take ``_reward_one_agent_gated``, v4oct
+    ``_reward_one_agent_v4oct``.
     """
     if params.gated:
         return _reward_one_agent_gated(params, state, values, i, gen)
+    if params.scenario == "v4oct":
+        return _reward_one_agent_v4oct(params, state, values, i)
     cfg = params.cfg
     dtype = values.dtype
     n = params.num_agents
@@ -506,7 +569,7 @@ def _reward_one_agent(
     rew = -(params.collision_rew * 4) * colliding.sum(dim=-1).to(dtype)
 
     # --- front/back spacing neighbors by own heading (july:1127-1144) ---
-    heading = values[:, i, 2]
+    heading = dynamics.heading_of(values[:, i], cfg)
     rel = pos - pos_i[:, None]
     proj = rel[..., 0] * torch.cos(heading)[:, None] + rel[..., 1] * torch.sin(heading)[:, None]
     front_mask = not_self & (proj > 0)
@@ -557,13 +620,9 @@ def _reward_one_agent(
     rew = rew - (goal_branch & (dist_goal >= cfg.goal_threshold)).to(dtype) * dist_goal
 
     # freeze + reset_velocity on first goal reach (july:1188-1190,
-    # core.py:324-333): a fresh heading theta ~ U(0, 2pi) at speed v_min
+    # core.py:324-333)
     row = values[:, i]
-    theta = (2 * math.pi) * torch.rand(row.shape[0], generator=gen, dtype=dtype, device=dev)
-    reset_row = torch.stack(
-        [row[:, 0], row[:, 1], theta, torch.full_like(theta, cfg.v_min)], dim=-1
-    )
-    values[:, i] = torch.where(newly[:, None], reset_row, row)
+    values[:, i] = torch.where(newly[:, None], dynamics.stopped_row(row, cfg, gen), row)
     state.status[:, i] = status_i | newly
     state.goal_tracker[:, i] = torch.where(
         newly, state.goal_match[:, i], state.goal_tracker[:, i]
@@ -694,7 +753,8 @@ def step(
     Order of operations of ``MultiAgentGraphEnv.step`` (environment.py:
     1021-1063): counters, action decode (``_set_action``), ``world.step()``
     physics, then the per-agent obs/reward/graph/done/info sweep in agent-id
-    order.  ``gen`` supplies the goal-reach heading draws.
+    order.  ``gen`` supplies the goal-reach heading draws of the heading
+    models.  ``params.integrator`` picks the integrator.
     """
     cfg = params.cfg
     dtype = state.agent_states.dtype
@@ -708,8 +768,8 @@ def step(
     )
     u = action_mod.decode(action_idx, table)
     active = ~state.status
-    values = dynamics.step_closed_form(state.agent_states, u, cfg, active)
-    speed = dynamics.speed_of(values)
+    values = dynamics.integrate(state.agent_states, u, cfg, active, method=params.integrator)
+    speed = dynamics.speed_of(values, cfg)
     zero = torch.zeros_like(speed)
     state = dataclasses.replace(
         state,

@@ -61,7 +61,8 @@ def step(
     Reward/done/info come from the terminal step; obs/node_obs/adj are the
     fresh episode's where an env reset (env_wrappers.py:866-870).
     ``prev_phase`` carries across the reset, like the reference's
-    never-cleared ``agent.previous_phase``.  A fresh state is drawn for every
+    never-cleared ``agent.previous_phase``, and so does v4oct's
+    ``frozen_pos``.  A fresh state is drawn for every
     env and selected per env, so the step never waits on the device to learn
     which envs are done.
     """
@@ -70,7 +71,10 @@ def step(
 
     B = action_idx.shape[0]
     fresh = reset_mod.reset(params, B, gen, state.agent_states.device, state.agent_states.dtype)
-    fresh = dataclasses.replace(fresh, prev_phase=state2.prev_phase)
+    # v4oct's stale position cache outlives the episode too (the reference
+    # never rebuilds the scenario object; EnvState.frozen_pos)
+    fresh = dataclasses.replace(fresh, prev_phase=state2.prev_phase,
+                                frozen_pos=state2.frozen_pos)
     fresh, obs_r, node_r, adj_r, _ = corridor.reset_outputs(params, fresh)
 
     new_state = _select_state(all_done, fresh, state2)

@@ -1,12 +1,15 @@
 """Episode reset for a batch of envs: tube sampling, agent spawning, landmark
-placement (port of ``envs/reset.py``: the july and exit-gated scenarios).
+placement (port of ``envs/reset.py``: the july, exit-gated and v4oct
+scenarios).
 
 Same distributions and rejection rule as the reference's ``reset_world`` ->
 ``random_scenario`` -> ``setup_tube_params`` chain (july:339-613; the
-gated scenarios' spawn jitter and spacing, and two/three_phase's tube
-length draw, as the JAX package's ``EnvParams`` properties give them); the random
-stream is a ``torch.Generator``'s, so draws differ from both the reference
-and the JAX package.
+gated scenarios' spawn jitter and spacing, two/three_phase's tube length
+draw, and v4oct's fixed tube angle and wider jitter, as the JAX package's
+``EnvParams`` properties give them); the random stream is a
+``torch.Generator``'s, so draws differ from both the reference and the JAX
+package.  What the JAX package draws nothing for (v4oct's angle, the double
+integrator's spawn velocity) takes nothing from the generator here either.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import math
 
 import torch
 
+from ..config.physics import DynamicsType
 from . import tube as tube_mod
 from .types import EnvParams, EnvState, TubeParams
 
@@ -75,8 +79,9 @@ def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> 
     """Sequential rejection-sampled spawn along the pre-entrance axis.
 
     july:452-486: agent k tries ``entrance + (world_size+k)/div * perp +
-    jitter`` with jitter ~ scale*U(-ws, ws)^2 (div 5 and scale 0.2 for july,
-    3 and 0.3 for the gated scenarios), rejected while within separation
+    jitter`` with jitter ~ scale*U(-jr, jr)^2 (div 5 and scale 0.2 for july
+    and v4oct, 3 and 0.3 for the gated scenarios; jr = ws, v4oct's 10),
+    rejected while within separation
     distance of an already-placed agent.  Like the JAX package, a fixed block
     of K candidates is drawn per agent and the first collision-free one is
     taken (the first candidate if none is free; failure probability is below
@@ -89,9 +94,10 @@ def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> 
     perp = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
     sep = params.cfg.separation_distance
     jscale, sdiv = params.spawn_jitter_scale, params.spawn_spacing_div
+    jr = params.spawn_jitter_range
     placed = []
     for k in range(n):
-        jitter = jscale * _uniform(gen, (B, K, 2), -ws, ws, ang)
+        jitter = jscale * _uniform(gen, (B, K, 2), -jr, jr, ang)
         base = tube.entrance + (ws + k) / sdiv * perp
         cand = base[:, None, :] + jitter  # (B, K, 2)
         if placed:
@@ -107,10 +113,13 @@ def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> 
 
 
 def _initial_velocity(params: EnvParams, gen: torch.Generator, B: int, like: Tensor):
-    """reset_velocity() at spawn (core.py:145-153, 324-333): heading models
-    draw theta ~ U(0, 2pi) at speed v_min."""
+    """reset_velocity() at spawn (core.py:145-153, 223-225, 324-333), the
+    last two state columns (B, N, 2): heading models draw theta ~ U(0, 2pi)
+    at speed v_min; the double integrator starts at rest and draws nothing."""
+    if params.cfg.dynamics == DynamicsType.DOUBLE_INTEGRATOR:
+        return like.new_zeros((B, params.num_agents, 2))
     theta = _uniform(gen, (B, params.num_agents), 0.0, 2 * math.pi, like)
-    return theta, torch.full_like(theta, params.cfg.v_min)
+    return torch.stack([theta, torch.full_like(theta, params.cfg.v_min)], dim=-1)
 
 
 def reset(
@@ -120,11 +129,15 @@ def reset(
 
     ``prev_phase`` starts at zero here; ``env.step``'s auto-reset carries the
     previous episode's value through instead (the reference never clears
-    ``agent.previous_phase``).
+    ``agent.previous_phase``), and v4oct's ``frozen_pos`` likewise.
     """
     B, n = num_envs, params.num_agents
     ref = torch.empty((B,), dtype=dtype, device=device)
-    angle = _uniform(gen, (B,), -math.pi / 2, math.pi / 2, ref)
+    if params.fixed_tube_angle is not None:
+        # v4oct pins the angle (v4oct:548), in the state's type; no draw
+        angle = torch.full_like(ref, params.fixed_tube_angle)
+    else:
+        angle = _uniform(gen, (B,), -math.pi / 2, math.pi / 2, ref)
     length = None
     if params.randomize_tube_length:
         # two_phase setup: length = 0.8ws + U(-0.3ws, 0.1ws)
@@ -132,8 +145,7 @@ def reset(
         length = ws * 0.8 + _uniform(gen, (B,), -0.3 * ws, 0.1 * ws, ref)
     tube = tube_mod.make_tube(angle, params.world_size, AGENT_SIZE, length)
     agent_pos = _spawn_agents(params, tube, gen)
-    theta, speed = _initial_velocity(params, gen, B, ref)
-    agent_states = torch.cat([agent_pos, theta[..., None], speed[..., None]], dim=-1)
+    agent_states = torch.cat([agent_pos, _initial_velocity(params, gen, B, ref)], dim=-1)
     landmark_pos = _place_landmarks(params, tube)
     fields = _blank_state(params, B, tube, dtype, device)
     goal = torch.gather(
@@ -146,5 +158,7 @@ def reset(
         agent_states=agent_states,
         prev_phase=torch.zeros((B, n), dtype=torch.long, device=device),
         landmark_pos=landmark_pos,
+        # v4oct's stale position cache: on a fresh env this reset's spawn
+        frozen_pos=agent_pos.clone() if params.scenario == "v4oct" else None,
         **fields,
     )

@@ -1,10 +1,11 @@
-"""Rotated-corridor ("tube") geometry, the july phase machine and the
-exit-gated one (port of ``envs/tube.py``).
+"""Rotated-corridor ("tube") geometry, the july phase machine, the
+exit-gated one and v4oct's (port of ``envs/tube.py``).
 
 Counterparts of the reference scenario helpers ``setup_tube_params``
 (july:518-613), ``_tube_coords``/``_in_tube_rect``/``_in_entrance_gate``/
 ``_entrance_gate_distance`` (july:616-645), ``get_agent_phase``
-(july:683-733) and the exit gate of rot_inv (:655-672, :681-733).
+(july:683-733), the exit gate of rot_inv (:655-672, :681-733) and v4oct's
+``get_agent_phase`` (v4oct:627-670).
 
 Batch convention: tube fields are ``(B, 2)`` or ``(B,)``; positions are
 ``(B, K, 2)`` (K agents per env) and results ``(B, K)``.
@@ -219,3 +220,27 @@ def agent_phase(
     exited = out_of_tube & (prev_phase == 1) & passed
     new_prev = torch.where(exited, two, prev_phase)
     return phase, new_prev
+
+
+def agent_phase_v4oct(tube: TubeParams, pos: Tensor) -> Tensor:
+    """v4oct ``get_agent_phase`` (v4oct:627-670) with ``previous_phase``
+    pinned at 0, (B, K) long.
+
+    The reward code that would advance ``agent.previous_phase`` sits after an
+    unconditional ``return`` (v4oct:938-1146, dead), and the call's own 1->2
+    mutation needs prev == 1, so prev stays 0.  The machine that is left:
+    phase 1 iff inside the tube AND inside the un-gated entrance region
+    (proj in [0, 0.1 L), perp < width/2), else 0; phase 2 is unreachable.
+    ``is_in_tube_fast`` (v4oct:82-110) takes inclusive bounds and no
+    epsilon, unlike july's rectangle.
+    """
+    span = tube.exit - tube.entrance
+    L = torch.linalg.vector_norm(span, dim=-1, keepdim=True)
+    direction = _vec(span / L)
+    rel = pos - _vec(tube.entrance)
+    proj = _dot(rel, direction)
+    perp = torch.linalg.vector_norm(rel - proj[..., None] * direction, dim=-1)
+    half = _sc(tube.width * 0.5)
+    in_tube = (proj >= 0) & (proj <= L) & (perp <= half)
+    valid_entrance = (proj >= 0) & (proj < 0.1 * L) & (perp < half)
+    return (in_tube & valid_entrance).to(torch.long)

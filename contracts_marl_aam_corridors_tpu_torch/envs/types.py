@@ -8,17 +8,18 @@ functions are plain functions on those batched tensors.
 Entity ordering on the graph axis matches the reference's ``World.entities``
 (core.py:574-582): agents, then landmarks.
 
-The port carries the ``rotate_tube_july`` scenario and the exit-gated
-``rot_inv``, ``two_phase`` and ``three_phase`` scenarios (point landmark
-formation, heading-model dynamics, closed-form integrator, no obstacles,
-walls or safety filter).  ``EnvState`` holds only the fields those scenarios
-read or write (no ``obstacle_pos``, ``goal_history``, safety-filter or
-sequential-scenario fields), and no RNG key: every random draw takes an
-explicit ``torch.Generator``.
+The port carries the ``rotate_tube_july`` scenario, the exit-gated
+``rot_inv``, ``two_phase`` and ``three_phase`` scenarios and ``v4oct``
+(point landmark formation, all three vehicle models, the closed-form and
+rk45 integrators, no obstacles, walls or safety filter).  ``EnvState``
+holds only the fields those scenarios read or write (no ``obstacle_pos``,
+``goal_history``, safety-filter or sequential-scenario fields), and no RNG
+key: every random draw takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -28,7 +29,7 @@ from ..config.physics import DynamicsType, RewardWeights, VehicleConfig
 
 Tensor = torch.Tensor
 
-SCENARIOS = ("rotate_tube_july", "rot_inv", "two_phase", "three_phase")
+SCENARIOS = ("rotate_tube_july", "rot_inv", "two_phase", "three_phase", "v4oct")
 GATED_SCENARIOS = ("rot_inv", "two_phase", "three_phase")
 
 
@@ -36,12 +37,12 @@ GATED_SCENARIOS = ("rot_inv", "two_phase", "three_phase")
 class EnvParams:
     """Static configuration of the corridor scenarios (reference
     ``make_world``, july:154-242).  Field names and defaults are the JAX
-    package's; fields of the scenarios, integrators and filters not ported
-    yet are absent."""
+    package's; fields of the scenarios and filters not ported yet are
+    absent."""
 
     cfg: VehicleConfig
-    # 'rotate_tube_july', or one of the exit-gated 'rot_inv', 'two_phase',
-    # 'three_phase'
+    # 'rotate_tube_july', 'v4oct', or one of the exit-gated 'rot_inv',
+    # 'two_phase', 'three_phase'
     scenario: str = "rotate_tube_july"
     num_agents: int = 3
     num_landmarks: int = 3
@@ -59,14 +60,12 @@ class EnvParams:
     # exit-gate ratios (rot_inv:619-620; two/three_phase use exit_back 0.02)
     exit_back_ratio: float = 0.05
     exit_front_ratio: float = 0.08
+    # 'closed_form' (exact, the default) or 'rk45' (the scipy replica)
+    integrator: str = "closed_form"
 
     def __post_init__(self):
         if self.scenario not in SCENARIOS:
             raise NotImplementedError(f"the torch port has no {self.scenario!r} scenario")
-        if self.cfg.dynamics == DynamicsType.DOUBLE_INTEGRATOR:
-            raise NotImplementedError(
-                "the torch port carries the heading models (air_taxi, unicycle) only"
-            )
 
     @property
     def num_entities(self) -> int:
@@ -91,6 +90,18 @@ class EnvParams:
         if self.scenario in ("two_phase", "three_phase"):
             return 15  # adds the heading alignment (2)
         return 19
+
+    @property
+    def spawn_jitter_range(self) -> float:
+        """Spawn jitter draw bound: U(-ws, ws) everywhere except v4oct's
+        hard-coded U(-10, 10) (v4oct:481)."""
+        return 10.0 if self.scenario == "v4oct" else self.world_size
+
+    @property
+    def fixed_tube_angle(self):
+        """v4oct pins the tube angle to -pi/2 instead of drawing it
+        (v4oct:547-548); None means draw U(-pi/2, pi/2) (july:530)."""
+        return -math.pi / 2 if self.scenario == "v4oct" else None
 
     @property
     def randomize_tube_length(self) -> bool:
@@ -124,6 +135,8 @@ class EnvParams:
 
     @property
     def num_actions(self) -> int:
+        if self.cfg.dynamics == DynamicsType.DOUBLE_INTEGRATOR:
+            return self.total_actions
         return self.cfg.num_motion_primitives
 
 
@@ -146,7 +159,7 @@ class TubeParams:
 class EnvState:
     """Per-environment episode state, batched over a leading env axis B."""
 
-    agent_states: Tensor  # (B, N, 4) [x, y, theta, v]
+    agent_states: Tensor  # (B, N, 4) [x, y, theta, v], or [x, y, vx, vy]
     p_dist: Tensor  # (B, N) odometry
     time: Tensor  # (B, N) per-agent clock
     status: Tensor  # (B, N) bool: frozen at goal (july:1187-1191)
@@ -173,6 +186,12 @@ class EnvState:
     goal_min_time: Tensor  # (B, N)
     t: Tensor  # (B,) long step counter
     sim_time: Tensor  # (B,)
+    # v4oct's stale position cache (B, N, 2), None elsewhere.  v4oct keys its
+    # cache on a nonexistent ``world.step_count`` (v4oct:334-341), so the
+    # cache is filled once, by the first observation, and never again: it
+    # holds the first reset's spawn through every step and episode after.
+    # Neighbour ranking and agent collisions read it.
+    frozen_pos: Optional[Tensor] = None
 
 
 @dataclasses.dataclass
@@ -191,11 +210,14 @@ class TimeStep:
 
 
 def map_state(fn, *states):
-    """Apply ``fn`` leaf-wise over one or more ``EnvState``s (tube included)."""
+    """Apply ``fn`` leaf-wise over one or more ``EnvState``s (tube included;
+    a field that is None in every state stays None)."""
     out = {}
     for f in dataclasses.fields(EnvState):
         vals = [getattr(s, f.name) for s in states]
-        if f.name == "tube":
+        if all(v is None for v in vals):
+            out[f.name] = None
+        elif f.name == "tube":
             out[f.name] = TubeParams(**{
                 g.name: fn(*[getattr(v, g.name) for v in vals])
                 for g in dataclasses.fields(TubeParams)
@@ -211,9 +233,9 @@ def env_state_from_numpy(fields: dict, device, dtype=torch.float64) -> EnvState:
     ``fields`` is keyed by the JAX package's ``EnvState`` field names, with
     ``tube`` a dict keyed by ``TubeParams`` names (for example built from a
     vmapped JAX state with ``np.asarray`` on each leaf).  Fields this slice
-    does not carry (``key``, safety and sequential fields) are
-    ignored.  Floating arrays become ``dtype``, integer arrays ``torch.long``,
-    booleans stay boolean.
+    does not carry (``key``, safety and sequential fields) are ignored, and
+    ``frozen_pos`` is None where ``fields`` has none.  Floating arrays
+    become ``dtype``, integer arrays ``torch.long``, booleans stay boolean.
     """
 
     def conv(a):
@@ -225,10 +247,13 @@ def env_state_from_numpy(fields: dict, device, dtype=torch.float64) -> EnvState:
         return torch.tensor(a, dtype=dtype, device=device)
 
     tube = fields["tube"]
-    return EnvState(**{
-        f.name: (
-            TubeParams(**{g.name: conv(tube[g.name]) for g in dataclasses.fields(TubeParams)})
-            if f.name == "tube" else conv(fields[f.name])
-        )
-        for f in dataclasses.fields(EnvState)
-    })
+    out = {}
+    for f in dataclasses.fields(EnvState):
+        if f.name == "tube":
+            out[f.name] = TubeParams(**{g.name: conv(tube[g.name])
+                                        for g in dataclasses.fields(TubeParams)})
+        elif f.name == "frozen_pos" and fields.get(f.name) is None:
+            out[f.name] = None
+        else:
+            out[f.name] = conv(fields[f.name])
+    return EnvState(**out)

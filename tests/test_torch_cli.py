@@ -12,7 +12,6 @@ july checkpoint (``model_weights_torch/july/unicycle``), merges its run's
 flags as the JAX package's ``merge_eval_args`` does, and writes the JAX
 package's ``eval_stats.csv`` columns.
 """
-import argparse
 import csv
 import dataclasses
 import json
@@ -101,13 +100,39 @@ def test_gated_env_params_match_jax(scenario_name):
     assert tenv.gated and tenv.node_feat_dim == 7
 
 
+# the settings ported since the refusals were first written: each builds what
+# the JAX package builds (the integrator is read from no flag, so a
+# namespace that carries one still gives closed_form, as there)
+V4OCT = "nav_metered_one_goal_graph_rotate_tube_v4oct"
+PORTED = {
+    "v4oct": ["--scenario_name", V4OCT],
+    "double_integrator": ["--dynamics_type", "double_integrator"],
+    "rk45": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_env_params_match_jax(name):
+    argv = PORTED[name] + FLOAT32
+    targs, jargs = flags.parse_all(argv), jflags.parse_all(argv)
+    if name == "rk45":
+        targs.integrator = jargs.integrator = "rk45"
+    tenv, jenv = flags.build_env_params(targs), jflags.build_env_params(jargs)
+    for f in dataclasses.fields(tenv):
+        assert _same(getattr(tenv, f.name), getattr(jenv, f.name)), f.name
+    for k in ("obs_dim", "node_feat_dim", "num_entities", "num_actions",
+              "spawn_jitter_range", "fixed_tube_angle"):
+        assert getattr(tenv, k) == getattr(jenv, k), k
+    assert tenv.integrator == "closed_form"
+    assert (tenv.scenario, tenv.num_actions) == {
+        "v4oct": ("v4oct", 25), "double_integrator": ("rotate_tube_july", 5),
+        "rk45": ("rotate_tube_july", 25)}[name]
+
+
 REFUSED = {
-    "v4oct": (["--scenario_name", "nav_metered_one_goal_graph_rotate_tube_v4oct"], "A5"),
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "double_integrator": (["--dynamics_type", "double_integrator"], "A5"),
-    "rk45": (None, "A5"),
     "obstacles": (["--num_obstacles", "2"], "A5"),
     "walls": (["--num_walls", "1"], "A5"),
     "formation": (["--formation_type", "circle"], "A5"),
@@ -133,11 +158,6 @@ def test_refusals_name_their_roadmap_item(name, tmp_path, tmp_path_factory):
         src = tmp_path_factory.mktemp("reference_weights")
         (src / "actor.pt").write_bytes(b"")
         argv = [str(src) if a == "{actor_pt}" else a for a in argv]
-    if argv is None:  # no flag selects the integrator; a namespace built in code may
-        args = argparse.Namespace(**vars(flags.parse_all([])), integrator="rk45")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            flags.build_env_params(args)
-        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         cli_train.main(FLOAT32 + argv + ["--cuda", "--run_dir", str(tmp_path)])
     assert not any(tmp_path.iterdir()), "a refused run writes nothing"
@@ -205,6 +225,26 @@ def test_cli_runs_saves_restores_and_resumes_on_cpu(tmp_path):
         steps = [json.loads(line)["step"] for line in f]
     assert steps == [40, 40, 80, 80, 120]
     assert not torch.equal(ts2.params.actor.action_out.weight, want["actor.action_out.weight"])
+
+
+def test_cli_trains_and_evaluates_v4oct_double_integrator_on_cpu(tmp_path):
+    """Two tiny v4oct episodes with the double integrator through the train
+    CLI, then the eval CLI on the checkpoint it wrote."""
+    dyn = ["--scenario_name", V4OCT, "--dynamics_type", "double_integrator"]
+    run_dir, ts = cli_train.main(SMALL + dyn + ["--num_env_steps", str(2 * 8 * 5),
+                                                "--run_dir", str(tmp_path / "train")])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["step"] for r in records] == [40, 40, 80]
+    assert all(v == v and abs(v) != float("inf") for r in records for v in r.values())
+    models = os.path.join(run_dir, "models")
+    run_cfg = load_run_config(models)
+    assert (run_cfg["scenario_name"], run_cfg["dynamics_type"]) == (V4OCT, "double_integrator")
+    assert ts.params.actor.action_out.weight.shape[0] == 5  # the 5-action table
+    rows = cli_eval.main(["--model_dir", models, "--scenario_name", V4OCT, "--num_agents", "3",
+                          "--episode_length", "5", "--render_episodes", "2", "--cuda",
+                          "--run_dir", str(tmp_path / "eval")])
+    assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
 
 
 # the shipped july checkpoint in the port's layout and its JAX original
