@@ -22,9 +22,14 @@ the july one, and the train CLI on three_phase warm-started from the
 rot_inv checkpoint, all at the models' full width, and checks that every
 GNN trunk forward and backward of those paths went through the kernels.
 The forward and backward kernels are also held at the gated graphs' width
-(7 node features, Ds = 8; july's give 9).  Prints one JSON line per phase
-(device, build, kernel, backward, dual, v2, rollout, eval, train, cli,
-checkpoint (one for each evaluation), eval_cli, gated_train, kernels), then
+(7 node features, Ds = 8; july's give 9), and at the graphs of obstacles
+and walls (E = 13, Ds = 9 and E = 22, Ds = 14), which the train and eval
+CLIs then run end to end (BASELINE config 2, and 10 agents with 2 walls).
+Prints one JSON line per phase (device, build, kernel, backward, dual, v2,
+rollout, eval, train, cli, checkpoint (one for each evaluation), eval_cli,
+gated_train, env_card, rk45_card, v4oct_train, v4oct_eval, walls_env_card,
+walls_trunk, obstacles_train, obstacles_eval, walls_train, walls_eval,
+kernels), then
 the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
@@ -155,6 +160,32 @@ RK45_STATES = 4096
 # envs, epochs and chunks and the launcher's 25-step episode
 V4OCT = "nav_metered_one_goal_graph_rotate_tube_v4oct"
 V4OCT_EPISODES = 2
+# Obstacles and walls.  BASELINE config 2 (BASELINE.json:8): july, air_taxi,
+# 5 agents, 5 landmarks, 3 obstacles (E = 13, 8 node features: Ds = 9),
+# world 4, at the flagship's 1024 envs x 25 steps, 15 epochs: 128,000
+# graphs an update trunk call.  10 agents, 10 landmarks and 2 walls with the
+# double integrator (BASELINE config 4 without its safety filter; E = 22,
+# the 13-dim wall rows: Ds = 14), world 4, at 256 envs (the flagship's 1024
+# cut): 64,000 graphs an update trunk call.  Their env on the card against
+# the CPU at the env_card protocol, with july and the double integrator's
+# single wall (E = 7), v4oct with 2 obstacles and 2 walls (E = 10) and
+# rot_inv with 3 obstacles.
+OBST_ENV = dict(num_agents=5, num_landmarks=5, num_obstacles=3, world_size=4.0)
+WALL_ENV = dict(num_agents=10, num_landmarks=10, num_walls=2, world_size=4.0)
+WALL_ENVS = 256
+WALLS_EPISODES = 2
+# their card-vs-CPU updates, about the graphs' work of the flagship's 64
+# envs (the CPU's plain trunk takes most of the time): 2,000 graphs of E =
+# 13 and 1,000 of E = 22
+OBST_CMP_ENVS, WALL_CMP_ENVS = 16, 4
+F64_CHUNK = 16000  # graphs of a float64 plain backward at a time
+WALLS_ENV_CARD = [
+    ("rotate_tube_july", "air_taxi", OBST_ENV),
+    ("rotate_tube_july", "double_integrator", dict(num_walls=1)),
+    ("v4oct", "air_taxi", dict(num_obstacles=2, num_walls=2)),
+    ("rot_inv", "air_taxi", dict(num_obstacles=3, world_size=4.0, collision_rew=30.0,
+                                 goal_rew=20.0, formation_rew=5.0)),
+]
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
@@ -1325,9 +1356,9 @@ def main() -> int:
 
     update_profile, tcarry = update_profile_of(train_runner, tts, tcarry)
 
-    def update_card_vs_cpu(env_params):
+    def update_card_vs_cpu(env_params, envs=CMP_ENVS):
         """One update, card (kernels) vs CPU (plain), from the same buffer
-        (a collect of CMP_ENVS envs of ``env_params`` on the card) and
+        (a collect of ``envs`` envs of ``env_params`` on the card) and
         weights, with tanh activations everywhere: the first epoch's
         gradients at the JAX bar, per leaf, and the update's losses and
         norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst gradient's ratio
@@ -1344,7 +1375,7 @@ def main() -> int:
             sides[side] = (tr, tr.init_state(SEED + 7))
         tr_c, ts_c = sides["card"]
         cmp_runner = Runner(env_params=env_params, policy=tr_c.policy, trainer=tr_c,
-                            n_rollout_threads=CMP_ENVS, episode_length=STEPS)
+                            n_rollout_threads=envs, episode_length=STEPS)
         _, buf_c, _ = cmp_runner.collect(ts_c, cmp_runner.init_carry(SEED + 7))
         buf_h = dataclasses.replace(buf_c, **{
             f.name: getattr(buf_c, f.name).cpu() for f in dataclasses.fields(buf_c)
@@ -1732,21 +1763,28 @@ def main() -> int:
     # double integrator's freeze zeroes its velocity).
     import numpy as np
 
+    from contracts_marl_aam_corridors_tpu_torch.config.physics import DynamicsType
     from contracts_marl_aam_corridors_tpu_torch.envs import dynamics as dyn_mod
 
-    t_phase = time.perf_counter()
     to_dev = lambda st: map_state(lambda x: x.to(dev), st)
     cpu = torch.device("cpu")
-    env_rows = []
-    for scen, veh in ENV_CARD_PAIRS:
-        p_ = EnvParams(cfg=vehicle_config(veh), scenario=scen, episode_length=ENV_CARD_STEPS)
+
+    def env_card_run(p_, veh):
+        """ENV_CARD_ENVS envs of ``p_`` in float64 through ENV_CARD_STEPS
+        steps on the card and on the CPU from one CPU reset, the same numpy
+        actions on both: obs, node_obs and adj held where no env reset and
+        no agent froze with a drawn heading, reward, done and both collision
+        counters everywhere.  A heading model's freeze draws the heading
+        from each device's own generator, so the card then goes on from the
+        CPU's state, as after an early reset."""
         g_c = torch.Generator().manual_seed(SEED + 11)
         g_d = torch.Generator(device=dev).manual_seed(SEED + 11)
         s_c, _ = env_mod.reset(p_, ENV_CARD_ENVS, g_c, cpu, torch.float64)
         s_d = to_dev(s_c)
         rng = np.random.RandomState(SEED + 11)
         err = dict.fromkeys(("obs", "node_obs", "adj", "reward"), 0.0)
-        done_equal, early_resets = True, 0
+        done_equal, counters_equal, early_resets, resynced = True, True, 0, 0
+        draws = p_.cfg.dynamics != DynamicsType.DOUBLE_INTEGRATOR
         t0 = time.perf_counter()
         for t in range(ENV_CARD_STEPS):
             act = torch.as_tensor(rng.randint(0, p_.num_actions, (ENV_CARD_ENVS, p_.num_agents)))
@@ -1754,15 +1792,20 @@ def main() -> int:
             s_d, ts_d = env_mod.step(p_, s_d, act.to(dev), g_d)
             s_c, ts_c = env_mod.step(p_, s_c, act, g_c)
             reset = ts_c.done.all(dim=1)
+            froze = ((s_c.status & ~before_c.status).any(dim=1) & ~reset if draws
+                     else torch.zeros_like(reset))
             done_equal &= torch.equal(ts_d.done.cpu(), ts_c.done)
+            for k in ("Num_agent_collisions", "Num_obst_collisions"):
+                counters_equal &= torch.equal(ts_d.info[k].cpu(), ts_c.info[k])
             for k in err:
                 a, b = getattr(ts_d, k).cpu(), getattr(ts_c, k)
                 if k != "reward":
-                    a, b = a[~reset], b[~reset]
+                    a, b = a[~(reset | froze)], b[~(reset | froze)]
                 if a.numel():
                     err[k] = max(err[k], (a - b).abs().max().item())
-            if reset.any() and t < ENV_CARD_STEPS - 1:
-                early_resets += 1
+            if froze.any() or (reset.any() and t < ENV_CARD_STEPS - 1):
+                early_resets += int(bool(reset.any()) and t < ENV_CARD_STEPS - 1)
+                resynced += int(froze.sum())
                 s_d = to_dev(s_c)  # go on from the CPU's draw
         torch.cuda.synchronize()
         pair_s = time.perf_counter() - t0
@@ -1771,12 +1814,23 @@ def main() -> int:
             and torch.equal(s_d.frozen_pos, before_d.frozen_pos)
             and torch.equal(s_d.frozen_pos.cpu(), s_c.frozen_pos))
         fresh = bool(reset.all()) and bool((s_c.t == 0).all()) and bool((s_d.t == 0).all())
-        ok = done_equal and max(err.values()) <= ENV_TOL and frozen_kept and fresh
-        env_rows.append({"scenario": scen, "vehicle": veh, "envs": ENV_CARD_ENVS,
-                         "steps": ENV_CARD_STEPS, "max_abs_err": err, "done_equal": done_equal,
-                         "early_resets": early_resets, "auto_reset_all": fresh,
-                         "frozen_pos_kept": frozen_kept, "seconds_card_and_cpu": pair_s,
-                         "ok": ok})
+        ok = (done_equal and counters_equal and max(err.values()) <= ENV_TOL and frozen_kept
+              and fresh)
+        return {"scenario": p_.scenario, "vehicle": veh,
+                "agents": p_.num_agents, "obstacles": p_.num_obstacles, "walls": p_.num_walls,
+                "entities": p_.num_entities, "envs": ENV_CARD_ENVS, "steps": ENV_CARD_STEPS,
+                "max_abs_err": err, "done_equal": done_equal,
+                "collision_counters_equal": counters_equal,
+                # the last step's counts: the whole episode's, every env
+                "obstacle_collisions": ts_c.info["Num_obst_collisions"].sum().item(),
+                "early_resets": early_resets, "envs_resynced_after_a_drawn_freeze": resynced,
+                "auto_reset_all": fresh, "frozen_pos_kept": frozen_kept,
+                "seconds_card_and_cpu": pair_s, "ok": ok}
+
+    t_phase = time.perf_counter()
+    env_rows = [env_card_run(EnvParams(cfg=vehicle_config(veh), scenario=scen,
+                                       episode_length=ENV_CARD_STEPS), veh)
+                for scen, veh in ENV_CARD_PAIRS]
     env_card_s = time.perf_counter() - t_phase
     emit({"phase": "env_card", "tol": ENV_TOL, "pairs": env_rows, "phase_seconds": env_card_s})
     if not all(r["ok"] for r in env_rows):
@@ -1925,6 +1979,296 @@ def main() -> int:
         raise AssertionError(f"cli.eval on the v4oct checkpoint gave {len(v4_rows)} rows "
                              f"(finite {finite}) and launched {v4_ev_launches}")
 
+    # ---------------------------------------------------------------- walls_env_card
+    # the obstacle and wall envs on the card against the CPU, as env_card
+    t_phase = time.perf_counter()
+    walls_env_rows = [env_card_run(EnvParams(cfg=vehicle_config(veh), scenario=scen,
+                                             episode_length=ENV_CARD_STEPS, **kw), veh)
+                      for scen, veh, kw in WALLS_ENV_CARD]
+    emit({"phase": "walls_env_card", "tol": ENV_TOL, "configs": walls_env_rows,
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not all(r["ok"] for r in walls_env_rows):
+        raise AssertionError(f"the card's obstacle and wall env differs from the CPU's: "
+                             f"{[r for r in walls_env_rows if not r['ok']]}")
+
+    # ---------------------------------------------------------------- walls_trunk
+    # rows 1 and 2 at the graphs of the two configurations: E = 13, Ds = 9
+    # and E = 22, Ds = 14, weights of a GNNBase of their width, random graphs
+    # with every entity type; row 1 at 3,072 and 64,000 graphs, row 2 at the
+    # update's graphs, each at the bars of the kernel and backward phases,
+    # launched twice for identical bits, resident >= planned CTAs an SM
+    def trunk_graphs(B, E, F, seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        node, adj = random_graphs(B, E, cfg.max_edge_dist, g_, F)
+        node[..., -1] = torch.randint(0, 4, (B, E), generator=g_, device=dev).float()
+        return node, adj
+
+    def forward_check(gnn, c, nd, ad, tol):
+        """Row 1 against its plain version (and float64) on one batch, with
+        its plan and device ms beside its bound and the plain version's."""
+        src_T, adj_T = transposed(gnn, nd, ad)
+        E, B = nd.shape[1], nd.shape[0]
+        args = trunk_args(c, E, src_T.shape[0] // E)
+        flat = nets._flatten_gnn_params(gnn, c.embed_layer_n, c.gnn_layer_n)
+        kp = gnn.kernel_params()
+        got = gnn_trunk.gnn_trunk_forward(*args, kp, src_T, adj_T)
+        identical = torch.equal(got, gnn_trunk.gnn_trunk_forward(*args, kp, src_T, adj_T))
+        want = gnn_trunk.gnn_trunk_forward_plain(*args, flat, src_T, adj_T)
+        exact = gnn_trunk.gnn_trunk_forward_plain(*args, flat, src_T, adj_T,
+                                                  compute_dtype=torch.float64)
+        torch.cuda.synchronize()
+        f64, f64_ok = forward_vs_f64(got, want, exact, tol is WIDE_TOL)
+        conf = forward_plan(c, E, args[1], B)
+        ok = (bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol) and f64_ok
+              and identical and conf["ctas_per_sm"] >= conf["planned_ctas_per_sm"])
+        edges = int(((adj_T > 0) & (adj_T < c.max_edge_dist)).sum().item())
+        w = gnn_trunk.trunk_work(E, args[1], args[2], kp.F1, args[3], c.embed_layer_n,
+                                 c.gnn_layer_n, B, edges, kp.blob.numel())
+        b_ms, b_by = bound(w)
+        o = torch.empty_like(got)
+        row = {"row": 1, "E": E, "Ds": args[1], "B": B,
+               "max_abs_err": (got - want).abs().max().item(), **tol, **f64,
+               "two_launches_identical": identical, "ok": ok, **conf,
+               "ms": time_ms(torch, lambda: gnn_trunk.launch_kernel(*args, kp, src_T, adj_T, o),
+                             reps=10, hide_host=True),
+               "plain_ms": time_ms(torch, lambda: gnn_trunk.gnn_trunk_forward_plain(
+                   *args, flat, src_T, adj_T), reps=3, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": w["flops"], "bytes": w["bytes"],
+               "edges": edges}
+        del got, want, exact, o
+        return row
+
+    def backward_check(gnn, c, nd, ad):
+        """Row 2 against its plain version (and float64) on one batch, relu
+        graphs near zero set aside, with its plan, registers, local memory
+        and device ms beside its bound and the plain version's."""
+        src_T, adj_T = transposed(gnn, nd, ad)
+        E, B = nd.shape[1], nd.shape[0]
+        Ds = src_T.shape[0] // E
+        args = trunk_args(c, E, Ds)
+        g = torch.randn((E * c.gnn_hidden_size, B), generator=gen, device=dev)
+        kp = gnn.kernel_params()
+        flat = gnn_trunk.unpack_blob(kp, Ds, c.gnn_num_heads, c.gnn_hidden_size,
+                                     c.embed_layer_n, c.gnn_layer_n)
+        aside = set_aside_relu_flips(c, args, [(flat, src_T)], adj_T, [g])
+        first = gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g)
+        identical = all(torch.equal(a, b) for a, b in zip(
+            first, gnn_trunk.gnn_trunk_backward(*args, kp, src_T, adj_T, g)))
+        got = grad_leaves(c, Ds, *first)
+        dflat, ds, da = gnn_trunk.gnn_trunk_backward_plain(*args, flat, src_T, adj_T, g)
+        want = list(dflat) + [ds, da]
+        del dflat, ds, da
+        torch.cuda.empty_cache()
+        # float64 in chunks of graphs (its autograd graph at 128,000 graphs
+        # and E = 13 does not fit the card whole), the parameter gradients
+        # summed over them
+        parts = [gnn_trunk.gnn_trunk_backward_plain(
+            *args, flat, src_T[:, i:i + F64_CHUNK], adj_T[:, i:i + F64_CHUNK],
+            g[:, i:i + F64_CHUNK], compute_dtype=torch.float64) for i in range(0, B, F64_CHUNK)]
+        exact = [sum(p[0][k] for p in parts) for k in range(len(parts[0][0]))] + [
+            torch.cat([p[j] for p in parts], dim=1) for j in (1, 2)]
+        del parts
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        rows = compare_leaves(got, want, exact)
+        conf = gnn_trunk.backward_config(E, Ds, args[2], c.embed_hidden_size, args[3],
+                                         c.embed_layer_n, c.gnn_layer_n, B)
+        conf.update(gnn_trunk.backward_attributes(E, Ds, args[2], c.embed_hidden_size, args[3],
+                                                  c.embed_layer_n, c.gnn_layer_n))
+        ok = (finite and identical and all(r["ok"] for r in rows)
+              and conf["ctas_per_sm"] >= conf["planned_ctas_per_sm"])
+        worst = max(rows, key=lambda r: r["max_abs_err"] / r["bar"])
+        del first, got, want, exact
+        torch.cuda.empty_cache()
+        bufs = (torch.empty_like(src_T), torch.empty_like(adj_T), torch.empty_like(kp.blob),
+                torch.empty((conf["ctas"], kp.blob.numel()), device=dev))
+        edges = int(((adj_T > 0) & (adj_T < c.max_edge_dist)).sum().item())
+        bw = gnn_trunk.trunk_bwd_work(E, Ds, args[2], kp.F1, args[3], c.embed_layer_n,
+                                      c.gnn_layer_n, B, edges, kp.blob.numel())
+        b_ms, b_by = bound(bw)
+        row = {"row": 2, "E": E, "Ds": Ds, "B": B, "acts": [c.embed_use_relu, c.gnn_use_relu],
+               "max_abs_err": max(r["max_abs_err"] for r in rows), "finite": finite,
+               "two_launches_identical": identical, "ok": ok,
+               "relu_graphs_set_aside": int(aside.sum().item()),
+               "worst_leaf": rows.index(worst), **worst, **conf,
+               "leaves": rows if not ok else len(rows),
+               "ms": time_ms(torch, lambda: gnn_trunk.launch_backward_kernel(
+                   *args, kp, src_T, adj_T, g, *bufs), reps=5, hide_host=True),
+               "plain_ms": time_ms(torch, lambda: gnn_trunk.gnn_trunk_backward_plain(
+                   *args, flat, src_T, adj_T, g), reps=2, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": bw["flops"], "bytes": bw["bytes"],
+               "edges": edges}
+        del bufs, g
+        torch.cuda.empty_cache()
+        return row
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    walls_trunk = []
+    with torch.no_grad():
+        for E, F, upd in ((13, 8, TRAIN_ENVS * STEPS * OBST_ENV["num_agents"]),
+                          (22, 13, WALL_ENVS * STEPS * WALL_ENV["num_agents"])):
+            shape_gnn = {}
+            for c in (cfg, tcfg):
+                m = nets.GNNBase(c, F, "node")
+                m.init_(torch.Generator().manual_seed(SEED + 13))
+                shape_gnn[c.gnn_use_relu] = m.to(dev)
+            tol = KERNEL_TOL if E <= 13 else WIDE_TOL
+            for B in (3072, 64000):
+                nd, ad = trunk_graphs(B, E, F, SEED + 14)
+                walls_trunk.append(forward_check(shape_gnn[True], cfg, nd, ad, tol))
+            nd, ad = trunk_graphs(upd, E, F, SEED + 15)
+            for c in (cfg, tcfg):
+                walls_trunk.append(backward_check(shape_gnn[c.gnn_use_relu], c, nd, ad))
+            del nd, ad
+            torch.cuda.empty_cache()
+    emit({"phase": "walls_trunk", "checks": walls_trunk,
+          "ptxas": {k: built[k]["ptxas"] for k in ("gnn_trunk_fwd", "gnn_trunk_bwd")},
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not all(r["ok"] for r in walls_trunk):
+        raise AssertionError(f"rows 1 and 2 disagree at the obstacle and wall shapes: "
+                             f"{[(r['row'], r['E'], r['B']) for r in walls_trunk if not r['ok']]}")
+
+    # ---------------------------------------------------------------- obstacles_train, walls_train
+    # the train entry point on each configuration at the default model's
+    # full width: two episodes, every trunk call through rows 1 and 2 (as
+    # many launches as two flagship episodes), the last checkpoint restored
+    # bit for bit; an update profiled as the train phase's, one update card
+    # (kernels) against CPU (plain versions); config 2's rollout step at
+    # N_ENVS envs profiled as the rollout phase's.  Then the eval entry
+    # point on the checkpoint, its obstacle collisions recorded inside the
+    # CLI by wrapping the env step.
+    def env_argv(kw):
+        return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+
+    def train_and_eval(label, argv, n_envs, cmp_envs, eval_argv, rollout_step):
+        t_train = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp_:
+            for f in all_counters:
+                f.launches = 0
+            t0 = time.perf_counter()
+            run_dir_, ts_ = cli_train.main(argv + ["--run_dir", tmp_])
+            torch.cuda.synchronize()
+            seconds_ = time.perf_counter() - t0
+            got_launches = [f.launches for f in all_counters]
+            want_launches = [WALLS_EPISODES * fwd_expected, WALLS_EPISODES * bwd_expected, 0, 0, 0]
+            if got_launches != want_launches:
+                raise AssertionError(f"{label}: the training launched (fwd, bwd, dual fwd, dual "
+                                     f"bwd, v2) {got_launches}, expected {want_launches}")
+            with open(Path(run_dir_) / "metrics.jsonl") as f:
+                recs = [json.loads(line) for line in f]
+            train_recs_ = [r for r in recs if "value_loss" in r]
+            if len(train_recs_) != WALLS_EPISODES or not all(
+                    v == v and abs(v) != float("inf") for r in recs for v in r.values()):
+                raise AssertionError(f"{label}: the training logged {recs}")
+            models_ = Path(run_dir_) / "models"
+            env_, _, trainer_, runner_ = cli_train.build(parse_all(argv))
+            restored_, saved_ = restore_checkpoint(str(models_), trainer_.init_state(SEED + 99))
+            held_, back_ = train_state_tensors(ts_), train_state_tensors(restored_)
+            differ_ = sorted(k for k, v in held_.items() if not (
+                torch.equal(back_[k], v) and back_[k].dtype == v.dtype
+                and back_[k].device == v.device
+                if isinstance(v, torch.Tensor) else back_.get(k) == v))
+            if saved_ != WALLS_EPISODES - 1 or set(back_) != set(held_) or differ_:
+                raise AssertionError(f"{label}: the checkpoint of episode {saved_} does not "
+                                     f"restore bit for bit: {differ_[:5]}")
+            out = {"argv": argv, "envs": n_envs, "episodes": WALLS_EPISODES,
+                   "entities": env_.num_entities, "node_feat_dim": env_.node_feat_dim,
+                   "graphs_per_update_trunk_call": n_envs * STEPS * env_.num_agents,
+                   "seconds": seconds_,
+                   "episode_seconds": [b - a for a, b in zip(
+                       [0.0] + [r["wall_s"] for r in train_recs_[:-1]],
+                       [r["wall_s"] for r in train_recs_])],
+                   "trunk_launches": {"forward": got_launches[0], "backward": got_launches[1],
+                                      "expected": want_launches[:2]},
+                   "restore": {"episode": saved_, "tensors_and_values": len(held_),
+                               "bit_for_bit": True},
+                   "last_episode": {k: train_recs_[-1][k] for k in (
+                       "average_episode_rewards", "value_loss", "policy_loss",
+                       "env_steps_per_sec")}}
+            if rollout_step:
+                roll = dataclasses.replace(runner_, n_rollout_threads=N_ENVS)
+                dataclasses.replace(roll, episode_length=2).collect(ts_, roll.init_carry(SEED + 3))
+                c0_ = roll.init_carry(SEED)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, rbuf, _ = roll.collect(ts_, c0_)
+                torch.cuda.synchronize()
+                collect_s = time.perf_counter() - t0
+                for k in ("obs", "node_obs", "adj", "rewards", "value_preds", "returns"):
+                    if not torch.isfinite(getattr(rbuf, k)).all():
+                        raise AssertionError(f"{label}: buffer {k} is not finite")
+                del rbuf
+                out["rollout"] = {"envs": N_ENVS, "steps": STEPS, "collect_seconds": collect_s,
+                                  "wall_ms_per_step": collect_s * 1e3 / STEPS,
+                                  "env_steps_per_s": N_ENVS * STEPS / collect_s,
+                                  "profile": collect_profile(roll, ts_, SEED + 4, collect_s)}
+            out["update_profile"], _ = update_profile_of(runner_, ts_,
+                                                         runner_.init_carry(SEED + 6))
+            ratio_, grad_err_, infos_ = update_card_vs_cpu(env_, cmp_envs)
+            out["card_vs_cpu"] = {"envs": cmp_envs, "first_epoch_grad_worst_ratio_to_bar": ratio_,
+                                  "first_epoch_grad_max_abs_err": grad_err_,
+                                  "train_info_card": infos_["card"],
+                                  "train_info_cpu": infos_["cpu"]}
+            out["phase_seconds"] = time.perf_counter() - t_train
+            emit({"phase": f"{label}_train", **out})
+
+            # the eval entry point on the checkpoint this training wrote
+            t_eval = time.perf_counter()
+            ev_argv_ = ["--model_dir", str(models_)] + eval_argv + [
+                "--episode_length", str(STEPS), "--render_episodes", "2",
+                "--run_dir", str(Path(tmp_) / "eval")]
+            episodes_obst = []
+            real_reset, real_step = env_mod.reset, env_mod.step
+
+            def counting_reset(*a, **k):
+                episodes_obst.append(0.0)
+                return real_reset(*a, **k)
+
+            def counting_step(*a, **k):
+                st_, ts_step = real_step(*a, **k)
+                episodes_obst[-1] = ts_step.info["Num_obst_collisions"].sum().item()
+                return st_, ts_step
+
+            for f in all_counters:
+                f.launches = 0
+            env_mod.reset, env_mod.step = counting_reset, counting_step
+            try:
+                ev_rows_ = cli_eval.main(ev_argv_)
+            finally:
+                env_mod.reset, env_mod.step = real_reset, real_step
+            torch.cuda.synchronize()
+            ev_launches_ = [f.launches for f in all_counters]
+        finite_ = all(v == v and abs(v) != float("inf") for r in ev_rows_ for v in r.values())
+        emit({"phase": f"{label}_eval", "argv": ["--model_dir", f"<{label}_train's models>"]
+              + ev_argv_[2:-2], "rows": ev_rows_, "finite": finite_,
+              "num_obst_collisions_per_episode": episodes_obst, "trunk_launches": ev_launches_,
+              "phase_seconds": time.perf_counter() - t_eval})
+        # one row-1 launch a step until every agent is done or the time limit
+        if (len(ev_rows_) != 2 or not finite_ or ev_launches_[1:] != [0] * 4
+                or not 2 <= ev_launches_[0] <= 2 * STEPS or len(episodes_obst) != 2):
+            raise AssertionError(f"{label}: cli.eval gave {len(ev_rows_)} rows (finite "
+                                 f"{finite_}), {len(episodes_obst)} episodes and launched "
+                                 f"{ev_launches_}")
+        return out, ev_launches_
+
+    common = ["--episode_length", str(STEPS), "--ppo_epoch", str(PPO_EPOCH), "--num_mini_batch",
+              "1", "--data_chunk_length", str(CHUNK), "--log_interval", "1", "--seed", str(SEED),
+              "--compute_dtype", "float32"]
+    obst_argv = common + env_argv(OBST_ENV) + [
+        "--dynamics_type", "air_taxi", "--n_rollout_threads", str(TRAIN_ENVS),
+        "--num_env_steps", str(WALLS_EPISODES * STEPS * TRAIN_ENVS)]
+    obst_out, obst_ev = train_and_eval(
+        "obstacles", obst_argv, TRAIN_ENVS, OBST_CMP_ENVS,
+        env_argv({k: v for k, v in OBST_ENV.items() if k != "world_size"}), True)
+    wall_argv = common + env_argv(WALL_ENV) + [
+        "--dynamics_type", "double_integrator", "--n_rollout_threads", str(WALL_ENVS),
+        "--num_env_steps", str(WALLS_EPISODES * STEPS * WALL_ENVS)]
+    wall_out, wall_ev = train_and_eval(
+        "walls", wall_argv, WALL_ENVS, WALL_CMP_ENVS,
+        env_argv({k: v for k, v in WALL_ENV.items() if k in ("num_agents", "num_landmarks")}),
+        False)
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -1935,9 +2279,14 @@ def main() -> int:
         "gated_checkpoint_eval_launches": {k: v["launches"] for k, v in gated_ck.items()},
         "gated_train_launches": gt_fl, "v4oct_train_launches": v4_launches[0],
         "v4oct_eval_launches": v4_ev_launches[0],
+        "obstacles_train_launches": obst_out["trunk_launches"]["forward"],
+        "walls_train_launches": wall_out["trunk_launches"]["forward"],
+        "obstacles_eval_launches": obst_ev[0], "walls_eval_launches": wall_ev[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
+        "ms_by_shape": {f"E{r['E']}_Ds{r['Ds']}_B{r['B']}": r["ms"]
+                        for r in walls_trunk if r["row"] == 1},
         "bound_ms_by_graphs": {r["B"]: r["bound_ms"] for r in sizes},
         "library_ms": None,
     }, {
@@ -1946,7 +2295,11 @@ def main() -> int:
         "replaces": "contracts_marl_aam_corridors_tpu/ops/gnn_pallas.py:594",
         "launches": episodes[-1]["backward_launches"], "gated_train_launches": gt_bl,
         "v4oct_train_launches": v4_launches[1],
+        "obstacles_train_launches": obst_out["trunk_launches"]["backward"],
+        "walls_train_launches": wall_out["trunk_launches"]["backward"],
         "max_abs_err": bwd_max_err,
+        "ms_by_shape": {f"E{r['E']}_Ds{r['Ds']}_B{r['B']}_{'relu' if r['acts'][1] else 'tanh'}":
+                        r["ms"] for r in walls_trunk if r["row"] == 2},
         "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
     }, {

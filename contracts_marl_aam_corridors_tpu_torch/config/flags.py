@@ -306,17 +306,16 @@ def build_env_params(args):
     vehicle's coordination range (the reference's ``make_world`` overwrites
     it, july:242), and no flag picks the integrator: ``closed_form`` unless
     ``EnvParams`` is built in code.  Raises ``NotImplementedError`` for what
-    the port lacks."""
+    the port lacks, and ``ValueError`` for a gated scenario with walls, whose
+    graph has no wall rows (``EnvParams``)."""
     from ..envs.types import EnvParams
     from .physics import vehicle_config
 
     scenario = scenario_kind(args.scenario_name)
     if scenario.startswith("sequential") or scenario == "fairassign":
         raise not_ported(f"the {scenario} scenario", "A7")
-    if args.num_obstacles or args.num_walls:
-        raise not_ported("obstacles and walls", "A5")
     if args.formation_type != "point":
-        raise not_ported(f"--formation_type {args.formation_type}", "A5")
+        raise not_ported(f"--formation_type {args.formation_type}", "A5.4")
     if args.use_safety_filter:
         raise not_ported("the safety filter", "A8")
     cfg = vehicle_config(args.dynamics_type)
@@ -326,6 +325,8 @@ def build_env_params(args):
         scenario=scenario,
         num_agents=args.num_agents,
         num_landmarks=args.num_landmarks,
+        num_obstacles=args.num_obstacles,
+        num_walls=args.num_walls,
         episode_length=args.episode_length,
         world_size=args.world_size,
         total_actions=args.total_actions,

@@ -30,8 +30,14 @@ never freeze.  Every vehicle model runs in every scenario: heading, speed
 and velocity come from ``dynamics.heading_of``/``speed_of``/``velocity_of``,
 and the double integrator's freeze zeroes the velocity without a draw.
 
-Sequential, fairassign, obstacles, walls and the safety filter are not
-ported yet.
+Obstacles and walls enter the graph after the landmarks, with zero
+velocity, and cost an agent on them 3 collision penalties (july, v4oct,
+rot_inv).  The reset never places obstacles (they stay at the origin) and
+every wall has the reference's default geometry; with walls the july and
+v4oct node rows take the 13-dim layout.  The gated scenarios' node rows
+have no wall rows, so ``EnvParams`` refuses them with walls.
+
+Sequential, fairassign and the safety filter are not ported yet.
 """
 from __future__ import annotations
 
@@ -49,7 +55,15 @@ from .types import EnvParams, EnvState, TimeStep, TubeParams
 
 Tensor = torch.Tensor
 
-ENTITY_AGENT, ENTITY_LANDMARK = 0.0, 1.0
+AGENT_SIZE = 0.06  # Entity.size default (core.py:385)
+ENTITY_AGENT, ENTITY_LANDMARK, ENTITY_OBSTACLE, ENTITY_WALL = 0.0, 1.0, 2.0, 3.0
+
+# Wall geometry: the reference creates walls with the class defaults and
+# never moves them (july:315-323; core.py:354-368): horizontal, axis_pos
+# 0.0, endpoints (-1, 1), width 0.1.  Several walls coincide.
+WALL_AXIS_POS = 0.0
+WALL_ENDPOINTS = (-1.0, 1.0)
+WALL_WIDTH = 0.1
 
 # fields the per-agent reward sweep writes in place (step() hands it copies)
 _REWARD_WRITES = (
@@ -59,8 +73,47 @@ _REWARD_WRITES = (
 )
 
 
-def _entity_positions(pos: Tensor, state: EnvState) -> Tensor:
-    return torch.cat([pos, state.landmark_pos], dim=1)
+def _wall_positions(params: EnvParams, like: Tensor) -> Tensor:
+    """The walls' nominal centres (B, W, 2) for the entity distances."""
+    cx = (WALL_ENDPOINTS[0] + WALL_ENDPOINTS[1]) / 2.0
+    return like.new_tensor([cx, WALL_AXIS_POS]).expand(like.shape[0], params.num_walls, 2)
+
+
+def _entity_positions(params: EnvParams, pos: Tensor, state: EnvState) -> Tensor:
+    """Agents, landmarks, obstacles and walls (B, E, 2)."""
+    parts = [pos, state.landmark_pos, state.obstacle_pos]
+    if params.num_walls:
+        parts.append(_wall_positions(params, pos))
+    return torch.cat(parts, dim=1)
+
+
+def _wall_collision(pos: Tensor) -> Tensor:
+    """Inside the axis-aligned wall box with 1.5*size margins (july:877-890),
+    for agent positions (..., 2)."""
+    m = 1.5 * AGENT_SIZE
+    x, y = pos[..., 0], pos[..., 1]
+    in_y = (WALL_AXIS_POS - m <= y) & (y <= WALL_AXIS_POS + m)
+    in_x = (WALL_ENDPOINTS[0] - m <= x) & (x <= WALL_ENDPOINTS[1] + m)
+    return in_y & in_x
+
+
+def _obstacle_collision(params: EnvParams, obstacle_pos: Tensor, pos: Tensor) -> Tensor:
+    """july ``is_obstacle_collision``:864-890, obstacles and walls: positions
+    (B, K, 2) against ``obstacle_pos`` (B, O, 2) -> (B, K) bool."""
+    hit = torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device)
+    if params.num_obstacles:
+        d = _norm(obstacle_pos[:, None, :, :] - pos[:, :, None, :])  # (B, K, O)
+        hit = hit | (d < 2.0 * (AGENT_SIZE + AGENT_SIZE)).any(dim=-1)
+    if params.num_walls:
+        hit = hit | _wall_collision(pos)
+    return hit
+
+
+def _obstacle_penalty(params: EnvParams, state: EnvState, pos_i: Tensor) -> Tensor:
+    """The -3*collision_rew term of agent positions ``pos_i`` (B, 2) on an
+    obstacle or a wall (july:1117-1124; v4oct, rot_inv alike), (B,)."""
+    hit = _obstacle_collision(params, state.obstacle_pos, pos_i[:, None])[:, 0]
+    return (params.collision_rew * 3) * hit.to(pos_i.dtype)
 
 
 def _decrement_cooldown(cooldown: Tensor) -> Tensor:
@@ -202,8 +255,9 @@ def _obs_gated_row(params: EnvParams, state: EnvState, values: Tensor, i: int) -
 def _node_obs_gated(params: EnvParams, state: EnvState, values: Tensor, i: int) -> Tensor:
     """Rotation-invariant node features wrt ego agent i, (B, E, 7)
     (rot_inv ``_get_entity_feat_relative``:1690-1740): [rot rel_vel(2),
-    rot rel_pos(2), rot rel_goal(2), entity_type(1)]."""
-    n, l = params.num_agents, params.num_landmarks
+    rot rel_pos(2), rot rel_goal(2), entity_type(1)]; rows for agents,
+    landmarks and obstacles."""
+    n, l, o = params.num_agents, params.num_landmarks, params.num_obstacles
     B = values.shape[0]
     # positions and velocities are cast to float32 BEFORE the relative
     # subtraction (rot_inv:1702-1715)
@@ -211,8 +265,8 @@ def _node_obs_gated(params: EnvParams, state: EnvState, values: Tensor, i: int) 
     vel = _f32r(dynamics.velocity_of(values, params.cfg))
     heading_i = dynamics.heading_of(values[:, i], params.cfg)[:, None]
     lm = _f32r(state.landmark_pos)
-    entity_pos = torch.cat([pos, lm], dim=1)
-    entity_vel = torch.cat([vel, vel.new_zeros(B, l, 2)], dim=1)
+    entity_pos = torch.cat([pos, lm, _f32r(state.obstacle_pos)], dim=1)
+    entity_vel = torch.cat([vel, vel.new_zeros(B, l + o, 2)], dim=1)
     pos_i = pos[:, i : i + 1]
     # float32 minus float32 is computed in float32 by numpy: the differences
     # round too
@@ -224,9 +278,8 @@ def _node_obs_gated(params: EnvParams, state: EnvState, values: Tensor, i: int) 
         goal_world = _gather_rows(lm, state.goal_match)
     goal_rel = _f32r(_rot_into_heading(_f32r(goal_world - pos_i), heading_i))
     rel_goal = torch.cat([goal_rel, rel_pos[:, n:]], dim=1)
-    etype = torch.cat(
-        [pos.new_full((B, n), ENTITY_AGENT), pos.new_full((B, l), ENTITY_LANDMARK)], dim=1
-    )[..., None]
+    etype = torch.cat([pos.new_full((B, n), ENTITY_AGENT), pos.new_full((B, l), ENTITY_LANDMARK),
+                       pos.new_full((B, o), ENTITY_OBSTACLE)], dim=1)[..., None]
     return torch.cat([rel_vel, rel_pos, rel_goal, etype], dim=-1)
 
 
@@ -254,8 +307,8 @@ def _reward_one_agent_gated(
     status_i = state.status[:, i].clone()
     cur = _gated_phase(params, tube, pos_ii, prev_i[:, None], reached_i[:, None])[:, 0]
 
-    # collisions: rot_inv x4 agent (rot_inv:1134-1142; its x3 obstacle term
-    # has no obstacles here); three_phase x1 agent; two_phase none
+    # collisions: rot_inv x4 agent, x3 obstacle (rot_inv:1134-1142);
+    # three_phase x1 agent; two_phase none
     not_self = torch.arange(n, device=dev) != i
     colliding = (
         (_norm(pos - pos_i[:, None]) < cfg.separation_distance)
@@ -266,6 +319,8 @@ def _reward_one_agent_gated(
     rew = torch.zeros_like(pos_i[:, 0])
     if scenario == "rot_inv":
         rew = rew - (params.collision_rew * 4) * colliding.sum(dim=-1).to(dtype)
+        if params.num_obstacles:  # the gated scenarios refuse walls
+            rew = rew - _obstacle_penalty(params, state, pos_i)
     elif scenario == "three_phase":
         rew = rew - params.collision_rew * colliding.sum(dim=-1).to(dtype)
 
@@ -437,40 +492,55 @@ def observations(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
 
 
 def _node_obs_for_agent(params: EnvParams, state: EnvState, values: Tensor, i: int) -> Tensor:
-    """Relative node features wrt ego agent i (july:1694-1771), (B, E, 8);
-    the gated scenarios' (B, E, 7) come from ``_node_obs_gated``."""
+    """Relative node features wrt ego agent i (july:1694-1771), (B, E, 8),
+    or with walls (B, E, 13); the gated scenarios' (B, E, 7) come from
+    ``_node_obs_gated``."""
     if params.gated:
         return _node_obs_gated(params, state, values, i)
-    n, l = params.num_agents, params.num_landmarks
+    n, l, o, w = params.num_agents, params.num_landmarks, params.num_obstacles, params.num_walls
     pos = values[..., :2]
     vel = dynamics.velocity_of(values, params.cfg)
     B = pos.shape[0]
-    entity_pos = _entity_positions(pos, state)
-    entity_vel = torch.cat([vel, vel.new_zeros(B, l, 2)], dim=1)
+    entity_pos = _entity_positions(params, pos, state)
+    entity_vel = torch.cat([vel, vel.new_zeros(B, l + o + w, 2)], dim=1)
     pos_i = pos[:, i : i + 1]
     rel_pos = entity_pos - pos_i
     rel_vel = entity_vel - vel[:, i : i + 1]
-    # agents: goal = landmark_poses[entity.id]; landmarks: own rel_pos
+    # agents: goal = landmark_poses[entity.id]; the others: their own rel_pos
     goal_idx = torch.arange(n, device=pos.device) % l
     agent_goal_rel = state.landmark_pos[:, goal_idx] - pos_i
     rel_goal = torch.cat([agent_goal_rel, rel_pos[:, n:]], dim=1)
     occ_agents = torch.gather(state.occupied, 1, state.goal_match)
-    occupied = torch.cat([occ_agents, occ_agents.new_ones(B, l)], dim=1)[..., None]
+    occupied = torch.cat([occ_agents, occ_agents.new_ones(B, l + o + w)], dim=1)[..., None]
     etype = torch.cat(
-        [pos.new_full((B, n), ENTITY_AGENT), pos.new_full((B, l), ENTITY_LANDMARK)], dim=1
+        [pos.new_full((B, n), ENTITY_AGENT), pos.new_full((B, l), ENTITY_LANDMARK),
+         pos.new_full((B, o), ENTITY_OBSTACLE), pos.new_full((B, w), ENTITY_WALL)], dim=1
     )[..., None]
-    return torch.cat([rel_vel, rel_pos, rel_goal, occupied, etype], dim=-1)
+    base = [rel_vel, rel_pos, rel_goal, occupied]
+    if w == 0:
+        return torch.cat(base + [etype], dim=-1)
+    # the 13-dim wall layout (july:1765-1767): [rel_vel, rel_pos, rel_goal,
+    # occupied, goal_history, o_corner(2), d_corner(2), type]; goal_history
+    # is zero, and the corners, relative to the ego agent, only on wall rows
+    E = n + l + o + w
+    corner = lambda x, y: (pos_i.new_tensor([x, y]) - pos_i).expand(B, w, 2)
+    pad = lambda c: torch.cat([c.new_zeros(B, E - w, 2), c], dim=1)
+    o_corner = pad(corner(WALL_ENDPOINTS[0], WALL_AXIS_POS + WALL_WIDTH / 2))
+    d_corner = pad(corner(WALL_ENDPOINTS[1], WALL_AXIS_POS - WALL_WIDTH / 2))
+    return torch.cat(base + [pos.new_zeros(B, E, 1), o_corner, d_corner, etype], dim=-1)
 
 
 def masked_adjacency(params: EnvParams, state: EnvState, values: Tensor) -> Tensor:
     """Distance-magnitude adjacency (B, E, E) with done rows/cols zeroed
     (july:1625-1648): agents disconnect once ``status`` is set; a landmark
-    disconnects when any ``goal_tracker`` entry equals its id."""
+    disconnects when any ``goal_tracker`` entry equals its id; obstacles and
+    walls never do."""
     l = params.num_landmarks
-    adj = dist_ops.pairwise_distances(_entity_positions(values[..., :2], state))
+    adj = dist_ops.pairwise_distances(_entity_positions(params, values[..., :2], state))
     lm = torch.arange(l, device=adj.device)
     landmark_done = (state.goal_tracker[:, :, None] == lm).any(dim=1)
-    keep = ~torch.cat([state.status, landmark_done], dim=1)
+    fixed = landmark_done.new_zeros(adj.shape[0], params.num_obstacles + params.num_walls)
+    keep = ~torch.cat([state.status, landmark_done, fixed], dim=1)
     return adj * keep[:, :, None] * keep[:, None, :]
 
 
@@ -499,6 +569,7 @@ def _reward_one_agent_v4oct(params: EnvParams, state: EnvState, values: Tensor,
     * agent collisions test the CACHED positions and ``break`` at the first
       hit: at most one -4*collision_rew penalty, fixed as agents move
       (v4oct:893-900, 838-841), on squared distances (dist2 < sep2);
+    * the current position on an obstacle or a wall pays -3*collision_rew;
     * phase 0 pays -dist(entrance), phase 1 -dist(exit); phase 2 and the
       goal branch are unreachable, so no agent freezes;
     * no reward clip and no phase_reached/conformance/spacing bookkeeping.
@@ -519,6 +590,8 @@ def _reward_one_agent_v4oct(params: EnvParams, state: EnvState, values: Tensor,
         & not_self
     )
     rew = -(params.collision_rew * 4) * colliding.any(dim=-1).to(dtype)
+    if params.num_obstacles or params.num_walls:
+        rew = rew - _obstacle_penalty(params, state, pos_i)
     is_p1 = (cur == 1).to(dtype)
     rew = rew - (cur == 0).to(dtype) * _norm(tube.entrance - pos_i)
     rew = rew - is_p1 * _norm(tube.exit - pos_i)
@@ -558,7 +631,7 @@ def _reward_one_agent(
     reached_i = state.phase_reached[:, i].clone()
     status_i = state.status[:, i].clone()
 
-    # --- collision penalty (july:1117-1124) ---
+    # --- collision penalties (july:1117-1124) ---
     not_self = torch.arange(n, device=dev) != i
     colliding = (
         (_norm(pos - pos_i[:, None]) < cfg.separation_distance)
@@ -567,6 +640,8 @@ def _reward_one_agent(
         & not_self
     )
     rew = -(params.collision_rew * 4) * colliding.sum(dim=-1).to(dtype)
+    if params.num_obstacles or params.num_walls:
+        rew = rew - _obstacle_penalty(params, state, pos_i)
 
     # --- front/back spacing neighbors by own heading (july:1127-1144) ---
     heading = dynamics.heading_of(values[:, i], cfg)
@@ -688,7 +763,8 @@ def _update_info_stats(params: EnvParams, state: EnvState, values: Tensor) -> En
     c5 = near & (nearest == goal_reached)
     dist_left = torch.where(c5, dist_goal_store, dist_left)
 
-    # collision counters (july:777-786)
+    # collision counters (july:777-786); obstacles and walls count for every
+    # agent, done or not
     n = params.num_agents
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     coll = (
@@ -697,6 +773,9 @@ def _update_info_stats(params: EnvParams, state: EnvState, values: Tensor) -> En
         & ~state.status[:, None, :]
         & ~eye
     )
+    obst = state.num_obstacle_collisions
+    if params.num_obstacles or params.num_walls:
+        obst = obst + _obstacle_collision(params, state.obstacle_pos, pos).to(dtype)
     return dataclasses.replace(
         state,
         goal_reached=goal_reached,
@@ -705,6 +784,7 @@ def _update_info_stats(params: EnvParams, state: EnvState, values: Tensor) -> En
         dist_left_to_goal=dist_left,
         dist_left_float=dist_goal,
         num_agent_collisions=state.num_agent_collisions + coll.sum(dim=-1).to(dtype),
+        num_obstacle_collisions=obst,
     )
 
 

@@ -10,6 +10,8 @@ draw, and v4oct's fixed tube angle and wider jitter, as the JAX package's
 ``torch.Generator``'s, so draws differ from both the reference and the JAX
 package.  What the JAX package draws nothing for (v4oct's angle, the double
 integrator's spawn velocity) takes nothing from the generator here either.
+Obstacles are never placed: they stay at the origin, as in the reference
+(core.py:400 default state), and spawns avoid them and the walls.
 """
 from __future__ import annotations
 
@@ -18,12 +20,12 @@ import math
 import torch
 
 from ..config.physics import DynamicsType
+from . import corridor
 from . import tube as tube_mod
 from .types import EnvParams, EnvState, TubeParams
 
 Tensor = torch.Tensor
 
-AGENT_SIZE = 0.06  # Entity.size default (core.py:385)
 SPAWN_CANDIDATES = 32
 
 
@@ -33,7 +35,7 @@ def _uniform(gen: torch.Generator, shape, lo: float, hi: float, like: Tensor) ->
 
 
 def _blank_state(params: EnvParams, B: int, tube: TubeParams, dtype, device) -> dict:
-    n = params.num_agents
+    n, o = params.num_agents, params.num_obstacles
     zf = lambda *s: torch.zeros(s, dtype=dtype, device=device)
     zi = lambda *s: torch.zeros(s, dtype=torch.long, device=device)
     full = lambda v, dt: torch.full((B, n), v, dtype=dt, device=device)
@@ -45,6 +47,7 @@ def _blank_state(params: EnvParams, B: int, tube: TubeParams, dtype, device) -> 
         entry_cooldown=zi(B, n),
         prev_proj=zf(B, n),
         tube=tube,
+        obstacle_pos=zf(B, o, 2),
         occupied=zf(B, n),
         goal_match=torch.arange(n, device=device).expand(B, n).clone(),
         goal_tracker=full(-1, torch.long),
@@ -75,16 +78,18 @@ def _place_landmarks(params: EnvParams, tube: TubeParams) -> Tensor:
     return point[:, None, :].expand(-1, params.num_landmarks, 2).clone()
 
 
-def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> Tensor:
+def _spawn_agents(params: EnvParams, tube: TubeParams, obstacle_pos: Tensor,
+                  gen: torch.Generator) -> Tensor:
     """Sequential rejection-sampled spawn along the pre-entrance axis.
 
     july:452-486: agent k tries ``entrance + (world_size+k)/div * perp +
     jitter`` with jitter ~ scale*U(-jr, jr)^2 (div 5 and scale 0.2 for july
     and v4oct, 3 and 0.3 for the gated scenarios; jr = ws, v4oct's 10),
-    rejected while within separation
-    distance of an already-placed agent.  Like the JAX package, a fixed block
-    of K candidates is drawn per agent and the first collision-free one is
-    taken (the first candidate if none is free; failure probability is below
+    rejected while within separation distance of an already-placed agent,
+    inside the wall box or within 2*(size + size) of an obstacle
+    (july:864-890; agent 0 too).  Like the JAX package, a fixed block of K
+    candidates is drawn per agent and the first collision-free one is taken
+    (the first candidate if none is free; failure probability is below
     reject_rate^K), so no data-dependent loop runs on the device.
     """
     n, ws = params.num_agents, params.world_size
@@ -100,13 +105,18 @@ def _spawn_agents(params: EnvParams, tube: TubeParams, gen: torch.Generator) -> 
         jitter = jscale * _uniform(gen, (B, K, 2), -jr, jr, ang)
         base = tube.entrance + (ws + k) / sdiv * perp
         cand = base[:, None, :] + jitter  # (B, K, 2)
+        collide = None
         if placed:
             prev = torch.stack(placed, dim=1)  # (B, k, 2)
             d = torch.linalg.vector_norm(prev[:, None, :, :] - cand[:, :, None, :], dim=-1)
             collide = (d < sep).any(dim=-1)  # (B, K)
-            first_ok = (~collide).to(torch.uint8).argmax(dim=1)
-        else:
+        if params.num_obstacles or params.num_walls:
+            hit = corridor._obstacle_collision(params, obstacle_pos, cand)
+            collide = hit if collide is None else collide | hit
+        if collide is None:
             first_ok = torch.zeros(B, dtype=torch.long, device=ang.device)
+        else:
+            first_ok = (~collide).to(torch.uint8).argmax(dim=1)
         idx = first_ok[:, None, None].expand(B, 1, 2)
         placed.append(torch.gather(cand, 1, idx)[:, 0, :])
     return torch.stack(placed, dim=1)
@@ -143,11 +153,11 @@ def reset(
         # two_phase setup: length = 0.8ws + U(-0.3ws, 0.1ws)
         ws = params.world_size
         length = ws * 0.8 + _uniform(gen, (B,), -0.3 * ws, 0.1 * ws, ref)
-    tube = tube_mod.make_tube(angle, params.world_size, AGENT_SIZE, length)
-    agent_pos = _spawn_agents(params, tube, gen)
+    tube = tube_mod.make_tube(angle, params.world_size, corridor.AGENT_SIZE, length)
+    fields = _blank_state(params, B, tube, dtype, device)
+    agent_pos = _spawn_agents(params, tube, fields["obstacle_pos"], gen)
     agent_states = torch.cat([agent_pos, _initial_velocity(params, gen, B, ref)], dim=-1)
     landmark_pos = _place_landmarks(params, tube)
-    fields = _blank_state(params, B, tube, dtype, device)
     goal = torch.gather(
         landmark_pos, 1, fields["goal_match"][..., None].expand(B, n, 2)
     )

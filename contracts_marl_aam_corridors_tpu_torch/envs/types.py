@@ -6,15 +6,15 @@ Port of ``contracts_marl_aam_corridors_tpu/envs/types.py``.  Every tensor of
 functions are plain functions on those batched tensors.
 
 Entity ordering on the graph axis matches the reference's ``World.entities``
-(core.py:574-582): agents, then landmarks.
+(core.py:574-582): agents, then landmarks, then obstacles, then walls.
 
 The port carries the ``rotate_tube_july`` scenario, the exit-gated
 ``rot_inv``, ``two_phase`` and ``three_phase`` scenarios and ``v4oct``
 (point landmark formation, all three vehicle models, the closed-form and
-rk45 integrators, no obstacles, walls or safety filter).  ``EnvState``
-holds only the fields those scenarios read or write (no ``obstacle_pos``,
-``goal_history``, safety-filter or sequential-scenario fields), and no RNG
-key: every random draw takes an explicit ``torch.Generator``.
+rk45 integrators, obstacles and walls, no safety filter).  ``EnvState``
+holds only the fields those scenarios read or write (no ``goal_history``,
+safety-filter or sequential-scenario fields), and no RNG key: every random
+draw takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -46,6 +46,10 @@ class EnvParams:
     scenario: str = "rotate_tube_july"
     num_agents: int = 3
     num_landmarks: int = 3
+    num_obstacles: int = 0
+    # axis-aligned walls, all at the reference's default geometry
+    # (corridor.WALL_*; july:315-323 never places them elsewhere)
+    num_walls: int = 0
     episode_length: int = 25
     world_size: float = 2.0
     total_actions: int = 5
@@ -66,10 +70,20 @@ class EnvParams:
     def __post_init__(self):
         if self.scenario not in SCENARIOS:
             raise NotImplementedError(f"the torch port has no {self.scenario!r} scenario")
+        if self.gated and self.num_walls:
+            # the gated node features have rows for agents, landmarks and
+            # obstacles only, while the adjacency also counts the walls: the
+            # JAX package's graph is inconsistent there and its train CLI
+            # fails on the reshape
+            n, l, o, w = self.num_agents, self.num_landmarks, self.num_obstacles, self.num_walls
+            raise ValueError(
+                f"the {self.scenario} scenario has no graph with walls: its node features "
+                f"hold n + l + o = {n + l + o} rows but its adjacency n + l + o + w = "
+                f"{n + l + o + w} entities")
 
     @property
     def num_entities(self) -> int:
-        return self.num_agents + self.num_landmarks
+        return self.num_agents + self.num_landmarks + self.num_obstacles + self.num_walls
 
     @property
     def gated(self) -> bool:
@@ -81,7 +95,10 @@ class EnvParams:
         # july (8): [rel_vel(2), rel_pos(2), rel_goal(2), occupied(1), type(1)]
         # gated (7): rotated into the ego heading, no occupied flag
         # (rot_inv:1690-1740)
-        return 7 if self.gated else 8
+        # with walls (13): adds goal_history and the wall corners (july:1765-1767)
+        if self.gated:
+            return 7
+        return 13 if self.num_walls else 8
 
     @property
     def obs_dim(self) -> int:
@@ -169,6 +186,7 @@ class EnvState:
     prev_proj: Tensor  # (B, N) rot_inv progress-reward state (rot_inv:1265-1275)
     tube: TubeParams
     landmark_pos: Tensor  # (B, L, 2)
+    obstacle_pos: Tensor  # (B, O, 2); the reset never places them: zeros
     occupied: Tensor  # (B, N) landmark_poses_occupied (july:506)
     goal_match: Tensor  # (B, N) long
     goal_tracker: Tensor  # (B, N) long, -1 until the agent freezes on its goal
@@ -233,9 +251,10 @@ def env_state_from_numpy(fields: dict, device, dtype=torch.float64) -> EnvState:
     ``fields`` is keyed by the JAX package's ``EnvState`` field names, with
     ``tube`` a dict keyed by ``TubeParams`` names (for example built from a
     vmapped JAX state with ``np.asarray`` on each leaf).  Fields this slice
-    does not carry (``key``, safety and sequential fields) are ignored, and
-    ``frozen_pos`` is None where ``fields`` has none.  Floating arrays
-    become ``dtype``, integer arrays ``torch.long``, booleans stay boolean.
+    does not carry (``key``, ``goal_history``, safety and sequential fields)
+    are ignored, and ``frozen_pos`` is None where ``fields`` has none.
+    Floating arrays become ``dtype``, integer arrays ``torch.long``,
+    booleans stay boolean.
     """
 
     def conv(a):

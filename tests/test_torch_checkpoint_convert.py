@@ -198,3 +198,63 @@ def test_converted_policy_matches_jax_policy():
                                    **NET_TOL)
     # the trained policy is confident: its values and log-probs are not flat
     assert float(np.std(np.asarray(want[0]))) > 0.1
+
+
+def test_wall_layout_policy_converts():
+    """A JAX policy for 10 agents with walls (E = 22, 13 node features, so
+    the embedding's ``W1`` has Ds = 14 rows; 5 double-integrator actions),
+    through ``policy_params_from_flax`` into the port's policy of the same
+    dims (a strict load), gives the JAX values, log-probs of given actions
+    and entropy at the nets bar."""
+    from contracts_marl_aam_corridors_tpu.config.physics import vehicle_config as jvehicle
+    from contracts_marl_aam_corridors_tpu.models import GRMAPPOPolicy as JPolicy
+    from contracts_marl_aam_corridors_tpu.models import ModelConfig as JModelConfig
+    from contracts_marl_aam_corridors_tpu.models import PolicyDims as JDims
+
+    from contracts_marl_aam_corridors_tpu_torch.models import (
+        GRMAPPOPolicy,
+        ModelConfig,
+        PolicyDims,
+        policy_params_from_flax,
+    )
+
+    OBS, N, E, F, A, R = 19, 10, 22, 13, 5, 40
+    rng_range = jvehicle("double_integrator").coordination_range
+    jpol = JPolicy(JModelConfig(max_edge_dist=rng_range),
+                   JDims(obs_dim=OBS, cent_obs_dim=OBS * N, num_entities=E, node_feat_dim=F,
+                         num_actions=A))
+    jparams = jax.jit(lambda k: jpol.init_params(k, jnp.float32))(jax.random.PRNGKey(3))
+    assert np.shape(jparams.actor["gnn_base"]["embed_layer"]["lin1"]["kernel"]) == (14, 16)
+    pol = GRMAPPOPolicy(ModelConfig(max_edge_dist=rng_range), PolicyDims(OBS, OBS * N, E, F, A),
+                        device="cpu")
+    params = pol.init_params(0)
+    sd_a, sd_c = policy_params_from_flax(
+        jax.tree.map(np.asarray, jparams.actor), jax.tree.map(np.asarray, jparams.critic))
+    params.actor.load_state_dict(sd_a)
+    params.critic.load_state_dict(sd_c)
+    assert params.actor.gnn_base.embed_layer.lin1.weight.shape == (16, 14)
+
+    rng = np.random.RandomState(4)
+    f32 = np.float32
+    node = rng.randn(R, E, F).astype(f32)
+    node[..., -1] = rng.randint(0, 4, (R, E))  # agents, landmarks, obstacles, walls
+    a = rng.rand(R, E, E) * 2 * rng_range
+    adj = ((a + a.transpose(0, 2, 1)) / 2).astype(f32)
+    adj[:, np.arange(E), np.arange(E)] = 0.0
+    x = dict(cent=rng.randn(R, OBS * N).astype(f32), obs=rng.randn(R, OBS).astype(f32),
+             aid=(np.arange(R) % N).reshape(R, 1).astype(np.int32))
+    h_a, h_c = (rng.randn(R, 1, 64).astype(f32) * 0.5 for _ in range(2))
+    masks, avail = np.ones((R, 1), f32), np.ones((R, A), f32)
+    acts = rng.randint(0, A, (R, 1))
+    J = jnp.asarray
+    want = jax.jit(jpol.evaluate_actions)(
+        jparams, J(x["cent"]), J(x["obs"]), J(node), J(adj), J(x["aid"]), J(x["aid"]),
+        J(h_a), J(h_c), J(acts), J(masks), J(avail))
+    T = lambda v: torch.tensor(v)[None]  # a time axis of length 1
+    with torch.no_grad():
+        got = pol.evaluate_actions(
+            params, T(x["cent"]), T(x["obs"]), T(node), T(adj), T(x["aid"]),
+            torch.tensor(h_a), torch.tensor(h_c), T(acts), T(masks), T(avail))
+    for name, g, w in zip(("values", "log_probs", "entropy"), got, want):
+        np.testing.assert_allclose(g.reshape(np.shape(w)).numpy(), np.asarray(w), err_msg=name,
+                                   **NET_TOL)

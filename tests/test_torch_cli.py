@@ -108,6 +108,11 @@ PORTED = {
     "v4oct": ["--scenario_name", V4OCT],
     "double_integrator": ["--dynamics_type", "double_integrator"],
     "rk45": [],
+    # BASELINE config 2's env, and 10 agents with walls (config 4 without
+    # its safety filter)
+    "obstacles": ["--num_obstacles", "3", "--num_agents", "5", "--num_landmarks", "5"],
+    "walls": ["--num_walls", "2", "--num_agents", "10", "--num_landmarks", "10",
+              "--dynamics_type", "double_integrator"],
 }
 
 
@@ -124,18 +129,29 @@ def test_ported_env_params_match_jax(name):
               "spawn_jitter_range", "fixed_tube_angle"):
         assert getattr(tenv, k) == getattr(jenv, k), k
     assert tenv.integrator == "closed_form"
-    assert (tenv.scenario, tenv.num_actions) == {
-        "v4oct": ("v4oct", 25), "double_integrator": ("rotate_tube_july", 5),
-        "rk45": ("rotate_tube_july", 25)}[name]
+    assert (tenv.scenario, tenv.num_actions, tenv.num_entities, tenv.node_feat_dim) == {
+        "v4oct": ("v4oct", 25, 5, 8), "double_integrator": ("rotate_tube_july", 5, 5, 8),
+        "rk45": ("rotate_tube_july", 25, 5, 8), "obstacles": ("rotate_tube_july", 25, 13, 8),
+        "walls": ("rotate_tube_july", 5, 22, 13)}[name]
+
+
+def test_gated_scenario_with_walls_is_refused(tmp_path):
+    """A gated scenario with walls has node rows without the walls and an
+    adjacency with them (the JAX train CLI fails on the reshape):
+    ``EnvParams`` refuses it, naming both counts, before the run writes
+    anything."""
+    argv = FLOAT32 + ["--scenario_name", GATED[0], "--num_walls", "1", "--num_obstacles", "1"]
+    # 3 agents, the default 2 landmarks and 1 obstacle
+    with pytest.raises(ValueError, match=r"n \+ l \+ o = 6 .* n \+ l \+ o \+ w = 7"):
+        cli_train.main(argv + ["--cuda", "--run_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir()), "a refused run writes nothing"
 
 
 REFUSED = {
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "obstacles": (["--num_obstacles", "2"], "A5"),
-    "walls": (["--num_walls", "1"], "A5"),
-    "formation": (["--formation_type", "circle"], "A5"),
+    "formation": (["--formation_type", "circle"], "A5.4"),
     "safety_filter": (["--use_safety_filter", "True"], "A8"),
     "dense_gnn": (["--gnn_impl", "dense"], "A6"),
     "edge_packed": (["--gnn_edge_packed", "True"], "A6"),
@@ -244,6 +260,30 @@ def test_cli_trains_and_evaluates_v4oct_double_integrator_on_cpu(tmp_path):
     rows = cli_eval.main(["--model_dir", models, "--scenario_name", V4OCT, "--num_agents", "3",
                           "--episode_length", "5", "--render_episodes", "2", "--cuda",
                           "--run_dir", str(tmp_path / "eval")])
+    assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
+
+
+def test_cli_trains_restores_and_evaluates_obstacles_on_cpu(tmp_path):
+    """BASELINE config 2's env (5 agents, 5 landmarks, 3 obstacles: E = 13)
+    through the train CLI, its checkpoint restored bit for bit, then the
+    eval CLI on it, which reads the obstacle collisions."""
+    env = ["--num_agents", "5", "--num_landmarks", "5", "--num_obstacles", "3"]
+    argv = SMALL[:SMALL.index("--num_agents")] + SMALL[SMALL.index("--num_agents") + 2:] + env
+    run_dir, ts = cli_train.main(argv + ["--num_env_steps", str(2 * 8 * 5),
+                                         "--run_dir", str(tmp_path / "train")])
+    models = os.path.join(run_dir, "models")
+    assert load_run_config(models)["num_obstacles"] == 3
+    _, _, trainer, _ = cli_train.build(flags.parse_all(argv), "cpu")
+    restored, episode = restore_checkpoint(models, trainer.init_state(99))
+    want, got = _state_tensors(ts), _state_tensors(restored)
+    assert episode == 1 and set(got) == set(want)
+    for k, v in want.items():
+        assert (torch.equal(got[k], v) and got[k].dtype == v.dtype
+                if isinstance(v, torch.Tensor) else got[k] == v), k
+    # Ds = 8 node features - the type + its 2-wide embedding = 9
+    assert ts.params.actor.gnn_base.embed_layer.lin1.weight.shape[1] == 9
+    rows = cli_eval.main(["--model_dir", models, "--cuda", "--render_episodes", "2",
+                          "--episode_length", "5", "--run_dir", str(tmp_path / "eval")] + env)
     assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
 
 

@@ -112,7 +112,6 @@ def both(fields, jparams):
     jf = {k: conv(v) for k, v in fields.items() if k != "tube"}
     jf.update(
         tube=JTubeParams(**{k: conv(v) for k, v in fields["tube"].items()}),
-        obstacle_pos=jnp.zeros((B, 0, 2)),
         goal_history=jnp.full((B, l), -1, jnp.int32),
         action_diff=jnp.zeros((B, n)),
         safety_violations=jnp.zeros((B, n), bool),

@@ -46,11 +46,12 @@ def jax_cfg(relu):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_params(relu, seed):
-    """Flax GNNBase params (their shapes do not depend on E)."""
+def jax_params(relu, seed, F=8):
+    """Flax GNNBase params for F node features (their shapes do not depend
+    on E)."""
     E = 6
     init = jax.jit(lambda key: JGNNBase(jax_cfg(relu), graph_aggr="node").init(
-        key, jnp.zeros((E, 8)), jnp.zeros((E, E)), jnp.zeros((1,), jnp.int32))["params"])
+        key, jnp.zeros((E, F)), jnp.zeros((E, E)), jnp.zeros((1,), jnp.int32))["params"])
     return init(jax.random.PRNGKey(seed))
 
 
@@ -68,14 +69,14 @@ def one_in_edge_adj(rng, B, E):
     return adj
 
 
-def make_case(E, relu, B=64, seed=0, one_in_edge=False):
-    """Flax GNNBase params and transposed inputs; graph 0 has no edges (with
+def make_case(E, relu, B=64, seed=0, one_in_edge=False, F=8):
+    """Flax GNNBase params and transposed inputs for F node features (the
+    wall layout's 13 with all four entity types); graph 0 has no edges (with
     ``one_in_edge``, the distances of :func:`one_in_edge_adj`)."""
     cfg = jax_cfg(relu)
     rng = np.random.RandomState(seed)
-    F = 8
     node_obs = np.concatenate(
-        [rng.randn(B, E, F - 1), rng.randint(0, 3, (B, E, 1))], axis=-1
+        [rng.randn(B, E, F - 1), rng.randint(0, 3 if F == 8 else 4, (B, E, 1))], axis=-1
     ).astype(np.float32)
     adj = (rng.rand(B, E, E) * 6.0).astype(np.float32)
     adj[:, np.arange(E), np.arange(E)] = 0.0
@@ -83,7 +84,7 @@ def make_case(E, relu, B=64, seed=0, one_in_edge=False):
     if one_in_edge:
         adj = one_in_edge_adj(rng, B, E)
     aid = rng.randint(0, 3, (B, 1)).astype(np.int32)
-    params = jax_params(relu, seed)
+    params = jax_params(relu, seed, F)
     src_T = np.asarray(_gnn_src_T(cfg, params, jnp.asarray(node_obs)), np.float32)
     adj_T = np.ascontiguousarray(adj.transpose(1, 2, 0).reshape(E * E, B))
     return cfg, params, node_obs, adj, aid, src_T, adj_T
@@ -110,17 +111,22 @@ def test_flatten_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("E,relu,one_in_edge", [
-    pytest.param(6, True, False, id="6-True"),
-    pytest.param(6, False, False, id="6-False"),
-    pytest.param(20, True, False, id="20-True"),
+@pytest.mark.parametrize("E,relu,one_in_edge,F", [
+    pytest.param(6, True, False, 8, id="6-True"),
+    pytest.param(6, False, False, 8, id="6-False"),
+    pytest.param(20, True, False, 8, id="20-True"),
     # the entity counts and graphs the card's kernel phase holds the kernel to
-    pytest.param(10, True, False, id="10-True"),
-    pytest.param(6, True, True, id="6-True-one_in_edge"),
+    pytest.param(10, True, False, 8, id="10-True"),
+    pytest.param(6, True, True, 8, id="6-True-one_in_edge"),
+    # BASELINE config 2's graphs (5 agents, 5 landmarks, 3 obstacles: Ds = 9)
+    # and 10 agents with walls (13 node features: Ds = 14)
+    pytest.param(13, True, False, 8, id="13-True-Ds9"),
+    pytest.param(22, False, False, 13, id="22-False-Ds14"),
 ])
-def test_plain_trunk_matches_xla_transposed(E, relu, one_in_edge):
+def test_plain_trunk_matches_xla_transposed(E, relu, one_in_edge, F):
     B = 64 if E == 6 and not one_in_edge else 32
-    cfg, params, _, _, _, src_T, adj_T = make_case(E, relu, B=B, one_in_edge=one_in_edge)
+    cfg, params, _, _, _, src_T, adj_T = make_case(E, relu, B=B, one_in_edge=one_in_edge, F=F)
+    assert src_T.shape[0] // E == F + 1  # the type's one column embedded in two
     d = dims(cfg, E, src_T)
     flat = port_flat(cfg, params)
     got = gnn_trunk.gnn_trunk_forward_plain(
@@ -129,7 +135,7 @@ def test_plain_trunk_matches_xla_transposed(E, relu, one_in_edge):
         *d, gnn_pallas.flatten_gnn_params(params, cfg.embed_layer_n, cfg.gnn_layer_n),
         jnp.asarray(src_T), jnp.asarray(adj_T)))
     assert got.shape == want.shape == (E * cfg.gnn_hidden_size, src_T.shape[1])
-    np.testing.assert_allclose(got, want, **(KERNEL_TOL if E <= 10 else WIDE_TOL))
+    np.testing.assert_allclose(got, want, **(KERNEL_TOL if E <= 13 else WIDE_TOL))
     # the edgeless graph: EmbedConv gives zero, every conv layer only its skip
     assert np.isfinite(got).all()
     if one_in_edge:
@@ -291,6 +297,32 @@ def test_plain_backward_matches_pallas_bwd_kernel():
     assert_grad_close(ds.numpy(), jds, "dsrc")
     assert_grad_close(da.numpy(), jda, "dadj")
     assert np.isfinite(da.numpy()).all() and np.all(da.numpy()[:, 0] == 0.0)
+
+
+def test_plain_backward_matches_float64_at_walls_shape():
+    """At the wall configuration's shape (E = 22, Ds = 14, tanh) the float32
+    plain backward against autograd of the same trunk in float64, per leaf
+    at the JAX gradient bar, and the backward in the kernel's order of work
+    (``gnn_trunk_backward_layerwise_plain``) against that float64 autograd at
+    1e-10 of each leaf's largest entry."""
+    E, B = 22, 16
+    cfg, params, _, _, _, src_T, adj_T = make_case(E, False, B=B, seed=8, F=13)
+    d = dims(cfg, E, src_T)
+    assert d[1] == 14
+    g = np.random.RandomState(8).randn(E * cfg.gnn_hidden_size, B).astype(np.float32)
+    flat, src, adj, gt = port_flat(cfg, params), torch.tensor(src_T), torch.tensor(adj_T), \
+        torch.tensor(g)
+    exact = gnn_trunk.gnn_trunk_backward_plain(*d, flat, src, adj, gt,
+                                               compute_dtype=torch.float64)
+    got = gnn_trunk.gnn_trunk_backward_plain(*d, flat, src, adj, gt)
+    order = gnn_trunk.gnn_trunk_backward_layerwise_plain(
+        *d, tuple(p.double() for p in flat), src.double(), adj.double(), gt.double(),
+        compute_dtype=torch.float64)
+    leaves = lambda r: list(r[0]) + [r[1], r[2]]
+    for i, (k, x, o) in enumerate(zip(leaves(got), leaves(exact), leaves(order))):
+        assert_grad_close(k.numpy(), x.numpy(), f"leaf {i}")
+        assert x.abs().max() > 0, i
+        assert (o - x).abs().max().item() <= 1e-10 * x.abs().max().item(), i
 
 
 def _has_node(fn, name):
