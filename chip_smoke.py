@@ -25,11 +25,16 @@ The forward and backward kernels are also held at the gated graphs' width
 (7 node features, Ds = 8; july's give 9), and at the graphs of obstacles
 and walls (E = 13, Ds = 9 and E = 22, Ds = 14), which the train and eval
 CLIs then run end to end (BASELINE config 2, and 10 agents with 2 walls).
+The circle and line landmark formations run whole episodes from the numpy
+parity reset on the card against the CPU and train and evaluate through
+the CLIs, and the JAX CLI's default command line (bfloat16 compute) trains
+at the flagship shape.
 Prints one JSON line per phase (device, build, kernel, backward, dual, v2,
 rollout, eval, train, cli, checkpoint (one for each evaluation), eval_cli,
 gated_train, env_card, rk45_card, v4oct_train, v4oct_eval, walls_env_card,
 walls_trunk, obstacles_train, obstacles_eval, walls_train, walls_eval,
-kernels), then
+formations_env_card, formations_train and formations_eval (one for each
+formation), bf16_train, bf16_eval, kernels), then
 the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
@@ -186,6 +191,29 @@ WALLS_ENV_CARD = [
     ("rot_inv", "air_taxi", dict(num_obstacles=3, world_size=4.0, collision_rew=30.0,
                                  goal_rew=20.0, formation_rew=5.0)),
 ]
+# The circle and line formations: whole episodes card against CPU in
+# float64, ENV_CARD_ENVS envs each from its own numpy parity reset
+# (np.random.seed(k)), with the fixed freeze heading, FORMATION_STEPS steps
+# and no re-sync at a freeze (v4oct's goal branch is unreachable: it never
+# freezes); july with circle trains at the flagship shape, v4oct with line
+# and the double integrator at v4oct_train's.
+FORMATION_ENV_CARD = [("rotate_tube_july", "unicycle_vehicle", "circle"),
+                      ("v4oct", "air_taxi", "line"),
+                      ("rotate_tube_july", "double_integrator", "line")]
+FORMATION_STEPS = 150
+FIXED_THETA = 0.7
+FORMATION_PLACED = 8  # envs that start an agent beside its goal
+FORMATION_CMP_ENVS = 16  # their card-vs-CPU updates
+# bfloat16 compute: the JAX CLI's default command line at the flagship
+# shape; one update's first-epoch gradients card against CPU at 16 envs,
+# at the bars of tests/test_torch_bf16.py with the CPU's bfloat16 in the JAX
+# package's place: the card's distance from the CPU's float32 gradient
+# within BF16_RATIO x the CPU's bfloat16 distance + BF16_GRAD_ATOL x the
+# leaf's largest entry + GRAD_ATOL, the JAX gradient bar's floor, which
+# holds a leaf whose gradient is zero but for rounding, such as a key bias
+# (the loss: + BF16_ATOL)
+BF16_CMP_ENVS = 16
+BF16_RATIO, BF16_ATOL, BF16_GRAD_ATOL = 2.0, 2e-3, 2e-3
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
@@ -1356,33 +1384,34 @@ def main() -> int:
 
     update_profile, tcarry = update_profile_of(train_runner, tts, tcarry)
 
-    def update_card_vs_cpu(env_params, envs=CMP_ENVS):
-        """One update, card (kernels) vs CPU (plain), from the same buffer
-        (a collect of ``envs`` envs of ``env_params`` on the card) and
-        weights, with tanh activations everywhere: the first epoch's
-        gradients at the JAX bar, per leaf, and the update's losses and
-        norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst gradient's ratio
-        to its bar, the largest gradient error and both sides' train info."""
-        tanh_all = ModelConfig(max_edge_dist=env_params.cfg.coordination_range,
-                               use_relu=False, embed_use_relu=False, gnn_use_relu=False)
+    def first_epoch_grads(env_params, envs, specs):
+        """The first epoch's gradients of one update on each side of
+        ``specs`` ({side: (device, compute dtype)}, the first side on the
+        card), from the same weights (tanh activations everywhere) and one
+        buffer (a collect of ``envs`` envs of ``env_params`` by the first
+        side).  Returns the sides' trainers and states, their gradients by
+        leaf (on the CPU), their losses and the buffer on the card and on
+        the CPU."""
         dims_ = PolicyDims(env_params.obs_dim, env_params.obs_dim * env_params.num_agents,
                            env_params.num_entities, env_params.node_feat_dim,
                            env_params.num_actions)
         sides = {}
-        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
-            pol = GRMAPPOPolicy(tanh_all, dims_, device=d)
-            tr = GRMAPPOTrainer(pol, ppo_epoch=1, data_chunk_length=CHUNK)
+        for side, (d, dt) in specs.items():
+            cfg_ = ModelConfig(max_edge_dist=env_params.cfg.coordination_range, use_relu=False,
+                               embed_use_relu=False, gnn_use_relu=False, compute_dtype=dt)
+            tr = GRMAPPOTrainer(GRMAPPOPolicy(cfg_, dims_, device=d), ppo_epoch=1,
+                                data_chunk_length=CHUNK)
             sides[side] = (tr, tr.init_state(SEED + 7))
-        tr_c, ts_c = sides["card"]
+        tr_c, ts_c = next(iter(sides.values()))
         cmp_runner = Runner(env_params=env_params, policy=tr_c.policy, trainer=tr_c,
                             n_rollout_threads=envs, episode_length=STEPS)
         _, buf_c, _ = cmp_runner.collect(ts_c, cmp_runner.init_carry(SEED + 7))
         buf_h = dataclasses.replace(buf_c, **{
             f.name: getattr(buf_c, f.name).cpu() for f in dataclasses.fields(buf_c)
             if getattr(buf_c, f.name) is not None})
-        first = {}
-        for side, buf in (("card", buf_c), ("cpu", buf_h)):
-            tr, st = sides[side]
+        first, totals = {}, {}
+        for side, (tr, st) in sides.items():
+            buf = buf_c if tr.policy.device.type == "cuda" else buf_h
             batch = tr._time_major(tr.chunks(st, buf))
             vn = vn_update(st.vn, batch["returns"].reshape(-1, 1))
             named = [(f"{m}.{n}", p) for m in ("actor", "critic")
@@ -1391,6 +1420,18 @@ def main() -> int:
             grads = torch.autograd.grad(total, [p for _, p in named], allow_unused=True)
             first[side] = {n: (torch.zeros_like(p) if gr is None else gr).detach().cpu()
                            for (n, p), gr in zip(named, grads)}
+            totals[side] = total.item()
+        return sides, first, totals, buf_c, buf_h
+
+    def update_card_vs_cpu(env_params, envs=CMP_ENVS):
+        """One update, card (kernels) vs CPU (plain), from the same buffer
+        (a collect of ``envs`` envs of ``env_params`` on the card) and
+        weights, with tanh activations everywhere: the first epoch's
+        gradients at the JAX bar, per leaf, and the update's losses and
+        norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst gradient's ratio
+        to its bar, the largest gradient error and both sides' train info."""
+        sides, first, _, buf_c, buf_h = first_epoch_grads(
+            env_params, envs, {"card": (dev, "float32"), "cpu": (torch.device("cpu"), "float32")})
         grad_err, worst_ratio = {}, 0.0
         for n, want in first["cpu"].items():
             err = (first["card"][n] - want).abs().max().item()
@@ -1425,7 +1466,7 @@ def main() -> int:
     # the train entry point as a user runs it: three flagship episodes with
     # in-training evaluation, then the last one again, resumed from its checkpoint
     from contracts_marl_aam_corridors_tpu_torch.cli import train as cli_train
-    from contracts_marl_aam_corridors_tpu_torch.config.flags import parse_all
+    from contracts_marl_aam_corridors_tpu_torch.config.flags import build_model_config, parse_all
     from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import restore_checkpoint
 
     cli_argv = ["--num_agents", str(ep.num_agents), "--n_rollout_threads", str(TRAIN_ENVS),
@@ -2141,7 +2182,10 @@ def main() -> int:
     def env_argv(kw):
         return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
 
-    def train_and_eval(label, argv, n_envs, cmp_envs, eval_argv, rollout_step):
+    def train_and_eval(label, argv, n_envs, cmp_envs, eval_argv, rollout_step, case=None,
+                       compare=None, profile=True):
+        compare = compare or update_card_vs_cpu
+        label_ = label if case is None else f"{label} ({case})"
         t_train = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp_:
             for f in all_counters:
@@ -2153,14 +2197,14 @@ def main() -> int:
             got_launches = [f.launches for f in all_counters]
             want_launches = [WALLS_EPISODES * fwd_expected, WALLS_EPISODES * bwd_expected, 0, 0, 0]
             if got_launches != want_launches:
-                raise AssertionError(f"{label}: the training launched (fwd, bwd, dual fwd, dual "
+                raise AssertionError(f"{label_}: the training launched (fwd, bwd, dual fwd, dual "
                                      f"bwd, v2) {got_launches}, expected {want_launches}")
             with open(Path(run_dir_) / "metrics.jsonl") as f:
                 recs = [json.loads(line) for line in f]
             train_recs_ = [r for r in recs if "value_loss" in r]
             if len(train_recs_) != WALLS_EPISODES or not all(
                     v == v and abs(v) != float("inf") for r in recs for v in r.values()):
-                raise AssertionError(f"{label}: the training logged {recs}")
+                raise AssertionError(f"{label_}: the training logged {recs}")
             models_ = Path(run_dir_) / "models"
             env_, _, trainer_, runner_ = cli_train.build(parse_all(argv))
             restored_, saved_ = restore_checkpoint(str(models_), trainer_.init_state(SEED + 99))
@@ -2170,9 +2214,9 @@ def main() -> int:
                 and back_[k].device == v.device
                 if isinstance(v, torch.Tensor) else back_.get(k) == v))
             if saved_ != WALLS_EPISODES - 1 or set(back_) != set(held_) or differ_:
-                raise AssertionError(f"{label}: the checkpoint of episode {saved_} does not "
+                raise AssertionError(f"{label_}: the checkpoint of episode {saved_} does not "
                                      f"restore bit for bit: {differ_[:5]}")
-            out = {"argv": argv, "envs": n_envs, "episodes": WALLS_EPISODES,
+            out = {"case": case, "argv": argv, "envs": n_envs, "episodes": WALLS_EPISODES,
                    "entities": env_.num_entities, "node_feat_dim": env_.node_feat_dim,
                    "graphs_per_update_trunk_call": n_envs * STEPS * env_.num_agents,
                    "seconds": seconds_,
@@ -2197,15 +2241,16 @@ def main() -> int:
                 collect_s = time.perf_counter() - t0
                 for k in ("obs", "node_obs", "adj", "rewards", "value_preds", "returns"):
                     if not torch.isfinite(getattr(rbuf, k)).all():
-                        raise AssertionError(f"{label}: buffer {k} is not finite")
+                        raise AssertionError(f"{label_}: buffer {k} is not finite")
                 del rbuf
                 out["rollout"] = {"envs": N_ENVS, "steps": STEPS, "collect_seconds": collect_s,
                                   "wall_ms_per_step": collect_s * 1e3 / STEPS,
                                   "env_steps_per_s": N_ENVS * STEPS / collect_s,
                                   "profile": collect_profile(roll, ts_, SEED + 4, collect_s)}
-            out["update_profile"], _ = update_profile_of(runner_, ts_,
-                                                         runner_.init_carry(SEED + 6))
-            ratio_, grad_err_, infos_ = update_card_vs_cpu(env_, cmp_envs)
+            if profile:
+                out["update_profile"], _ = update_profile_of(runner_, ts_,
+                                                             runner_.init_carry(SEED + 6))
+            ratio_, grad_err_, infos_ = compare(env_, cmp_envs)
             out["card_vs_cpu"] = {"envs": cmp_envs, "first_epoch_grad_worst_ratio_to_bar": ratio_,
                                   "first_epoch_grad_max_abs_err": grad_err_,
                                   "train_info_card": infos_["card"],
@@ -2240,14 +2285,15 @@ def main() -> int:
             torch.cuda.synchronize()
             ev_launches_ = [f.launches for f in all_counters]
         finite_ = all(v == v and abs(v) != float("inf") for r in ev_rows_ for v in r.values())
-        emit({"phase": f"{label}_eval", "argv": ["--model_dir", f"<{label}_train's models>"]
-              + ev_argv_[2:-2], "rows": ev_rows_, "finite": finite_,
+        emit({"phase": f"{label}_eval", "case": case,
+              "argv": ["--model_dir", f"<{label}_train's models>"] + ev_argv_[2:-2],
+              "rows": ev_rows_, "finite": finite_,
               "num_obst_collisions_per_episode": episodes_obst, "trunk_launches": ev_launches_,
               "phase_seconds": time.perf_counter() - t_eval})
         # one row-1 launch a step until every agent is done or the time limit
         if (len(ev_rows_) != 2 or not finite_ or ev_launches_[1:] != [0] * 4
                 or not 2 <= ev_launches_[0] <= 2 * STEPS or len(episodes_obst) != 2):
-            raise AssertionError(f"{label}: cli.eval gave {len(ev_rows_)} rows (finite "
+            raise AssertionError(f"{label_}: cli.eval gave {len(ev_rows_)} rows (finite "
                                  f"{finite_}), {len(episodes_obst)} episodes and launched "
                                  f"{ev_launches_}")
         return out, ev_launches_
@@ -2269,6 +2315,146 @@ def main() -> int:
         env_argv({k: v for k, v in WALL_ENV.items() if k in ("num_agents", "num_landmarks")}),
         False)
 
+    # ---------------------------------------------------------------- formations_env_card
+    from contracts_marl_aam_corridors_tpu_torch.envs import corridor as corridor_mod
+    from contracts_marl_aam_corridors_tpu_torch.envs import reset as reset_mod
+    from contracts_marl_aam_corridors_tpu_torch.envs import tube as tube_mod
+
+    def formation_env_card_run(scen, veh, formation):
+        """ENV_CARD_ENVS envs of ``formation``, env k from the numpy parity
+        reset after np.random.seed(k), with the fixed freeze heading, through
+        FORMATION_STEPS steps on the card and on the CPU with the same numpy
+        actions and no re-sync at a freeze: obs, node_obs, adj and the agent
+        states held where no env reset, reward, done and both collision
+        counters everywhere.  In the first FORMATION_PLACED envs that have
+        one, an agent whose goal lies past the tube starts beside it in
+        phase 2, so that agents freeze; an env whose agents are all done
+        before the time limit resets from each device's generator and is
+        then re-synced from the CPU (counted)."""
+        p_ = EnvParams(cfg=vehicle_config(veh), scenario=scen, formation_type=formation,
+                       episode_length=FORMATION_STEPS, parity_fixed_reset_theta=FIXED_THETA)
+        t0 = time.perf_counter()
+        resets = []
+        for k in range(ENV_CARD_ENVS):
+            np.random.seed(k)
+            resets.append(reset_mod.reset_parity_numpy(p_))
+        s_c = map_state(lambda *xs: torch.cat(xs), *resets)
+        reset_s = time.perf_counter() - t0
+        placed = 0
+        if scen != "v4oct":
+            goals = corridor_mod.goal_positions(s_c.landmark_pos, s_c.goal_match)
+            past = tube_mod.passed_tube(s_c.tube, goals)
+            for b in torch.nonzero(past.any(dim=1))[:FORMATION_PLACED, 0].tolist():
+                i = int(torch.nonzero(past[b])[-1])
+                s_c.agent_states[b, i, :2] = goals[b, i] + torch.tensor([0.01, -0.005],
+                                                                         dtype=torch.float64)
+                s_c.prev_phase[b, i] = s_c.phase_reached[b, i] = 2
+                placed += 1
+        s_d = to_dev(s_c)
+        g_c = torch.Generator().manual_seed(SEED + 13)
+        g_d = torch.Generator(device=dev).manual_seed(SEED + 13)
+        acts = np.random.RandomState(SEED + 13).randint(
+            0, p_.num_actions, (FORMATION_STEPS, ENV_CARD_ENVS, p_.num_agents))
+        err = dict.fromkeys(("obs", "node_obs", "adj", "agent_states", "reward"), 0.0)
+        done_equal, counters_equal, freezes, early_resets = True, True, 0, 0
+        t0 = time.perf_counter()
+        for t in range(FORMATION_STEPS):
+            act = torch.as_tensor(acts[t])
+            status = s_c.status.clone()
+            s_d, ts_d = env_mod.step(p_, s_d, act.to(dev), g_d)
+            s_c, ts_c = env_mod.step(p_, s_c, act, g_c)
+            reset = ts_c.done.all(dim=1)
+            freezes += int((s_c.status & ~status)[~reset].sum())
+            done_equal &= torch.equal(ts_d.done.cpu(), ts_c.done)
+            for k in ("Num_agent_collisions", "Num_obst_collisions"):
+                counters_equal &= torch.equal(ts_d.info[k].cpu(), ts_c.info[k])
+            for k in err:
+                src_d, src_c = (s_d, s_c) if k == "agent_states" else (ts_d, ts_c)
+                a, b = getattr(src_d, k).cpu(), getattr(src_c, k)
+                if k != "reward":
+                    a, b = a[~reset], b[~reset]
+                if a.numel():
+                    err[k] = max(err[k], (a - b).abs().max().item())
+            if reset.any() and t < FORMATION_STEPS - 1:
+                early_resets += int(reset.sum())
+                s_d = to_dev(s_c)
+        torch.cuda.synchronize()
+        ok = (done_equal and counters_equal and max(err.values()) <= ENV_TOL and bool(reset.all())
+              and (freezes == 0 if scen == "v4oct" else freezes > 0))
+        return {"scenario": scen, "vehicle": veh, "formation": formation,
+                "envs": ENV_CARD_ENVS, "steps": FORMATION_STEPS, "fixed_theta": FIXED_THETA,
+                "placed_beside_goal": placed, "freezes": freezes,
+                "early_reset_envs_resynced": early_resets, "max_abs_err": err,
+                "done_equal": done_equal, "collision_counters_equal": counters_equal,
+                "parity_reset_seconds": reset_s,
+                "seconds_card_and_cpu": time.perf_counter() - t0, "ok": ok}
+
+    t_phase = time.perf_counter()
+    formation_rows = [formation_env_card_run(*c) for c in FORMATION_ENV_CARD]
+    emit({"phase": "formations_env_card", "tol": ENV_TOL, "cases": formation_rows,
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not all(r["ok"] for r in formation_rows):
+        raise AssertionError(f"the card's formation episodes differ from the CPU's: "
+                             f"{[r for r in formation_rows if not r['ok']]}")
+
+    # ---------------------------------------------------------------- formations_train, _eval
+    # july with circle at the flagship shape and v4oct with line and the
+    # double integrator at v4oct_train's, each through train_and_eval
+    # (no update profile): the float32 runs' launches, the restore, the
+    # card-vs-CPU update, then the eval entry point
+    flagship_n = ["--num_agents", str(ep.num_agents), "--n_rollout_threads", str(TRAIN_ENVS),
+                  "--num_env_steps", str(WALLS_EPISODES * STEPS * TRAIN_ENVS)]
+    circle_out, circle_ev = train_and_eval(
+        "formations", common + flagship_n + ["--formation_type", "circle"], TRAIN_ENVS,
+        FORMATION_CMP_ENVS, ["--num_agents", str(ep.num_agents)], False, case="july circle",
+        profile=False)
+    line_out, line_ev = train_and_eval(
+        "formations", common + flagship_n + [
+            "--formation_type", "line", "--scenario_name", V4OCT, "--dynamics_type",
+            "double_integrator"], TRAIN_ENVS, FORMATION_CMP_ENVS,
+        ["--scenario_name", V4OCT, "--num_agents", str(ep.num_agents)], False,
+        case="v4oct line double_integrator", profile=False)
+
+    # ---------------------------------------------------------------- bf16_train, bf16_eval
+    # the JAX CLI's default command line (no --compute_dtype: bfloat16) at
+    # the flagship shape: the float32 run's launches an episode, the
+    # restore, an update profiled, one update's gradients card against CPU
+    # at the bfloat16 bar; then the eval entry point (float32, as the JAX
+    # package's)
+    def bf16_update_vs_cpu(env_params, envs):
+        """One update's first-epoch gradients in bfloat16 on the card and on
+        the CPU and in float32 on the CPU, from one buffer and the same
+        weights: each leaf's and the loss's card distance from the CPU's
+        float32 within BF16_RATIO x the CPU bfloat16 distance + the atols.
+        Returns the worst ratio to the bar, the largest card distance and
+        both bfloat16 sides' losses."""
+        cpu_ = torch.device("cpu")
+        _, first, totals, _, _ = first_epoch_grads(env_params, envs, {
+            "card": (dev, "bfloat16"), "cpu": (cpu_, "bfloat16"), "cpu_f32": (cpu_, "float32")})
+        worst, card_err = 0.0, {}
+        rows = [("loss", totals["card"], totals["cpu"], totals["cpu_f32"], BF16_ATOL)] + [
+            (n, first["card"][n], first["cpu"][n], ref,
+             BF16_GRAD_ATOL * ref.abs().max().item() + GRAD_ATOL)
+            for n, ref in first["cpu_f32"].items()]
+        for n, c, h, ref, atol in rows:
+            d_card = torch.as_tensor(c - ref).abs().max().item()
+            d_cpu = torch.as_tensor(h - ref).abs().max().item()
+            bar = BF16_RATIO * d_cpu + atol
+            worst, card_err[n] = max(worst, d_card / bar if bar else 0.0), d_card
+            if d_card > bar:
+                raise AssertionError(f"the card's bfloat16 {n} is {d_card} from the CPU's "
+                                     f"float32, the CPU's bfloat16 {d_cpu}: bar {bar}")
+        return worst, max(card_err.values()), {
+            "card": {"loss": totals["card"]}, "cpu": {"loss": totals["cpu"],
+                                                      "loss_float32": totals["cpu_f32"]}}
+
+    bf16_argv = [a for a in common if a not in ("--compute_dtype", "float32")] + flagship_n
+    if build_model_config(parse_all(bf16_argv)).compute_dtype != "bfloat16":
+        raise AssertionError("the default command line does not compute in bfloat16")
+    bf16_out, bf16_ev = train_and_eval(
+        "bf16", bf16_argv, TRAIN_ENVS, BF16_CMP_ENVS, ["--num_agents", str(ep.num_agents)],
+        False, case="july default dtype", compare=bf16_update_vs_cpu)
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -2282,6 +2468,12 @@ def main() -> int:
         "obstacles_train_launches": obst_out["trunk_launches"]["forward"],
         "walls_train_launches": wall_out["trunk_launches"]["forward"],
         "obstacles_eval_launches": obst_ev[0], "walls_eval_launches": wall_ev[0],
+        "formations_train_launches": {
+            "july circle": circle_out["trunk_launches"]["forward"],
+            "v4oct line": line_out["trunk_launches"]["forward"]},
+        "formations_eval_launches": {"july circle": circle_ev[0], "v4oct line": line_ev[0]},
+        "bf16_train_launches": bf16_out["trunk_launches"]["forward"],
+        "bf16_eval_launches": bf16_ev[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
@@ -2297,6 +2489,10 @@ def main() -> int:
         "v4oct_train_launches": v4_launches[1],
         "obstacles_train_launches": obst_out["trunk_launches"]["backward"],
         "walls_train_launches": wall_out["trunk_launches"]["backward"],
+        "formations_train_launches": {
+            "july circle": circle_out["trunk_launches"]["backward"],
+            "v4oct line": line_out["trunk_launches"]["backward"]},
+        "bf16_train_launches": bf16_out["trunk_launches"]["backward"],
         "max_abs_err": bwd_max_err,
         "ms_by_shape": {f"E{r['E']}_Ds{r['Ds']}_B{r['B']}_{'relu' if r['acts'][1] else 'tanh'}":
                         r["ms"] for r in walls_trunk if r["row"] == 2},

@@ -6,7 +6,7 @@
         --scenario_name nav_metered_one_goal_graph_rotate_tube_july \\
         --num_agents 3 --episode_length 25 --n_rollout_threads 1024 \\
         --ppo_epoch 15 --num_mini_batch 1 --data_chunk_length 10 \\
-        --num_env_steps 2000000 --dynamics_type air_taxi --compute_dtype float32
+        --num_env_steps 2000000 --dynamics_type air_taxi
 
 The flags are the JAX package's (``config/flags.py``).  It runs on one CUDA
 card; ``--cuda`` (the reference's store_false flag) runs it on the CPU.
@@ -26,10 +26,12 @@ to two/three_phase's 15):
 
 Differences from the JAX package: one device (no data mesh, ROADMAP A10);
 the classic-MPE path (``build_mpe``/``main_mpe``) waits for ROADMAP A9;
-``--use_curriculum``, ``--fuse_gnn_trunks``, ``--use_centralized_V`` (off),
-``--compute_dtype bfloat16`` and a warm start from the reference's
-``actor.pt`` weights are refused, naming the ROADMAP item that brings them;
-seeds are integers drawn from ``--seed``, not JAX keys.
+``--use_curriculum``, ``--fuse_gnn_trunks``, ``--use_centralized_V`` (off)
+and a warm start from the reference's ``actor.pt`` weights are refused,
+naming the ROADMAP item that brings them; seeds are integers drawn from
+``--seed``, not JAX keys.  ``--compute_dtype`` defaults to bfloat16, as the
+JAX package's does: the MLP tails compute in bfloat16, the GNN trunk in
+float32 (``models/nets.py``).
 """
 from __future__ import annotations
 

@@ -18,10 +18,10 @@ are taken as the JAX package takes them: ``--fair_rew`` and
 ``--graph_feat_type`` (the env reads none of them), ``--weight_decay`` (the
 JAX package's Adam takes none), and ``--gnn_impl`` transposed or
 pallas_fused (the port's one trunk formulation, transposed, is the function
-both compute).  The port computes in float32: ``--compute_dtype bfloat16``,
-the JAX default, which also sets the dtype of the JAX package's MLP, Dense
-and LayerNorm layers, is refused, so a run of the port passes
-``--compute_dtype float32``.
+both compute).  ``--compute_dtype`` defaults to bfloat16, as there, and
+takes the JAX package's ``pallas_fused`` semantics: the trunk in float32,
+the MLP tails in bfloat16 (``models/nets.py``).  Trunk widths, embed depths
+and conv depths the kernels are not built for are refused (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -165,8 +165,9 @@ def graph_config(args, parser: argparse.ArgumentParser, return_extras: bool = Fa
     parser.add_argument("--target_mini_batch_size", type=int, default=32)
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["float32", "bfloat16"],
-                        help="the JAX package's GNN/MLP trunk compute dtype; "
-                        "the port computes in float32 and refuses bfloat16")
+                        help="the MLP tails' compute dtype; the GNN trunk "
+                        "computes in float32 either way, as the JAX package's "
+                        "pallas_fused trunk does")
     parser.add_argument("--gnn_impl", type=str, default="auto",
                         choices=["auto", "dense", "transposed", "pallas_fused"],
                         help="the JAX package's GNN trunk implementation; "
@@ -314,8 +315,6 @@ def build_env_params(args):
     scenario = scenario_kind(args.scenario_name)
     if scenario.startswith("sequential") or scenario == "fairassign":
         raise not_ported(f"the {scenario} scenario", "A7")
-    if args.formation_type != "point":
-        raise not_ported(f"--formation_type {args.formation_type}", "A5.4")
     if args.use_safety_filter:
         raise not_ported("the safety filter", "A8")
     cfg = vehicle_config(args.dynamics_type)
@@ -334,15 +333,18 @@ def build_env_params(args):
         goal_rew=args.goal_rew,
         formation_rew=args.formation_rew,
         max_speed=args.max_speed,
+        formation_type=args.formation_type,
     )
 
 
 def build_model_config(args):
     """argparse.Namespace -> the port's ``ModelConfig`` (the JAX package's
     ``build_model_config``, :332).  Raises ``NotImplementedError`` for the
-    GNN settings that need the dense per-graph formulation and for bfloat16
-    compute."""
+    GNN settings that need the dense per-graph formulation and for trunk
+    shapes the kernels are not built for (``ModelConfig`` itself takes
+    them: the CPU's plain trunk runs them)."""
     from ..models.config import ModelConfig
+    from ..ops.gnn_trunk import KERNEL_WIDTH, MAX_EMBED_LAYERS, MAX_GNN_LAYERS
 
     if args.gnn_impl == "dense":
         raise not_ported("--gnn_impl dense", "A6")
@@ -352,8 +354,13 @@ def build_model_config(args):
         raise not_ported("--gnn_concat_heads", "A6")
     if (args.actor_graph_aggr, args.critic_graph_aggr) != ("node", "global"):
         raise not_ported("graph aggregations other than actor 'node', critic 'global'", "A6")
-    if args.compute_dtype == "bfloat16":
-        raise not_ported("--compute_dtype bfloat16 (pass --compute_dtype float32)", "A13")
+    if {args.embed_hidden_size, args.gnn_hidden_size} != {KERNEL_WIDTH}:
+        raise not_ported(f"trunk widths other than {KERNEL_WIDTH} (--embed_hidden_size, "
+                         "--gnn_hidden_size)", "A6")
+    if args.embed_layer_N > MAX_EMBED_LAYERS or args.gnn_layer_N > MAX_GNN_LAYERS:
+        raise not_ported(f"more than {MAX_EMBED_LAYERS} embed layers or "
+                         f"{MAX_GNN_LAYERS} extra conv layers (--embed_layer_N, "
+                         "--gnn_layer_N)", "A6")
     return ModelConfig(
         hidden_size=args.hidden_size,
         layer_N=args.layer_N,
@@ -376,4 +383,5 @@ def build_model_config(args):
         global_aggr_type=args.global_aggr_type,
         use_cent_obs=args.use_cent_obs,
         max_edge_dist=args.max_edge_dist,
+        compute_dtype=args.compute_dtype,
     )

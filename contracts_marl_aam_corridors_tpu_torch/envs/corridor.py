@@ -126,6 +126,14 @@ def _gather_rows(x: Tensor, idx: Tensor) -> Tensor:
     return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
+def goal_positions(landmark_pos: Tensor, goal_match: Tensor) -> Tensor:
+    """``landmark_pos[goal_match]`` per env, (B, K, 2), with the index
+    clamped to the last landmark as a JAX gather clamps it: an env with more
+    agents than landmarks sends the extra agents to the last landmark."""
+    idx = goal_match.clamp(max=landmark_pos.shape[1] - 1)
+    return torch.gather(landmark_pos, 1, idx[..., None].expand(*idx.shape, 2))
+
+
 def _norm(x: Tensor) -> Tensor:
     return torch.linalg.vector_norm(x, dim=-1)
 
@@ -210,7 +218,7 @@ def _gated_obs(params: EnvParams, state: EnvState, values: Tensor) -> Tensor:
     if params.scenario == "two_phase":
         goal_vec = _f32r(tube.exit)[:, None, :] - pos  # the exit cast to float32 first
     else:
-        goal_vec = _gather_rows(state.landmark_pos, state.goal_match) - pos
+        goal_vec = goal_positions(state.landmark_pos, state.goal_match) - pos
     rot_goal = _rot_into_heading(goal_vec, heading)
     # the neighbour vectors are cast to float32 BEFORE the rotation (rot_inv:1489-1492)
     nb = _f32r(_two_nearest_rel(params, pos, state.status))
@@ -275,7 +283,7 @@ def _node_obs_gated(params: EnvParams, state: EnvState, values: Tensor, i: int) 
     if params.scenario == "two_phase":
         goal_world = _f32r(state.tube.exit)[:, None, :].expand(B, n, 2)
     else:
-        goal_world = _gather_rows(lm, state.goal_match)
+        goal_world = goal_positions(lm, state.goal_match)
     goal_rel = _f32r(_rot_into_heading(_f32r(goal_world - pos_i), heading_i))
     rel_goal = torch.cat([goal_rel, rel_pos[:, n:]], dim=1)
     etype = torch.cat([pos.new_full((B, n), ENTITY_AGENT), pos.new_full((B, l), ENTITY_LANDMARK),
@@ -404,7 +412,7 @@ def _reward_one_agent_gated(
     # phase 2: goal seek and freeze (rot_inv:1286-1301; three_phase the same
     # without goal_tracker; two_phase has no phase-2 term, it froze at the exit)
     if scenario in ("rot_inv", "three_phase"):
-        goal_pos = _gather_rows(state.landmark_pos, state.goal_match[:, i : i + 1])[:, 0]
+        goal_pos = goal_positions(state.landmark_pos, state.goal_match[:, i : i + 1])[:, 0]
         dist_goal = _norm(pos_i - goal_pos)
         at_goal = goal_branch & (dist_goal < cfg.goal_threshold)
         newly = at_goal & ~status_i
@@ -416,7 +424,8 @@ def _reward_one_agent_gated(
 
     # the freeze resets the velocity (core.py:324-333)
     row = values[:, i]
-    values[:, i] = torch.where(newly[:, None], dynamics.stopped_row(row, cfg, gen), row)
+    stopped = dynamics.stopped_row(row, cfg, gen, params.parity_fixed_reset_theta)
+    values[:, i] = torch.where(newly[:, None], stopped, row)
     state.status[:, i] = status_i | newly
 
     # conformance / phase_reached / regression (rot_inv:1306-1325)
@@ -456,7 +465,7 @@ def observations(params: EnvParams, state: EnvState) -> tuple[EnvState, Tensor]:
     n = params.num_agents
     pos = state.agent_states[..., :2]
     vel = dynamics.velocity_of(state.agent_states, params.cfg)
-    goal = _gather_rows(state.landmark_pos, state.goal_match)
+    goal = goal_positions(state.landmark_pos, state.goal_match)
     rel_goal = goal - pos
     occupied = torch.gather(state.occupied, 1, state.goal_match)[..., None]
     if params.scenario == "v4oct":
@@ -687,7 +696,7 @@ def _reward_one_agent(
     rew = rew - is_p1 * _norm(tube.exit - pos_i)
 
     # goal logic (july:1186-1194)
-    goal_pos = _gather_rows(state.landmark_pos, state.goal_match[:, i : i + 1])[:, 0]
+    goal_pos = goal_positions(state.landmark_pos, state.goal_match[:, i : i + 1])[:, 0]
     dist_goal = _norm(pos_i - goal_pos)
     at_goal = goal_branch & (dist_goal < cfg.goal_threshold)
     newly = at_goal & ~status_i
@@ -697,7 +706,8 @@ def _reward_one_agent(
     # freeze + reset_velocity on first goal reach (july:1188-1190,
     # core.py:324-333)
     row = values[:, i]
-    values[:, i] = torch.where(newly[:, None], dynamics.stopped_row(row, cfg, gen), row)
+    stopped = dynamics.stopped_row(row, cfg, gen, params.parity_fixed_reset_theta)
+    values[:, i] = torch.where(newly[:, None], stopped, row)
     state.status[:, i] = status_i | newly
     state.goal_tracker[:, i] = torch.where(
         newly, state.goal_match[:, i], state.goal_tracker[:, i]

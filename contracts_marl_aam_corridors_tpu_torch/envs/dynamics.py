@@ -120,15 +120,20 @@ def heading_of(values: Tensor, cfg: VehicleConfig) -> Tensor:
     return values[..., 2]
 
 
-def stopped_row(row: Tensor, cfg: VehicleConfig, gen: torch.Generator) -> Tensor:
+def stopped_row(row: Tensor, cfg: VehicleConfig, gen: torch.Generator,
+                fixed_theta: float | None = None) -> Tensor:
     """``reset_velocity()`` of an agent frozen at its goal (core.py:145-153,
     223-225, 324-333), for rows (B, 4): the double integrator zeroes its
-    velocity and draws nothing; the heading models draw a heading
-    theta ~ U(0, 2pi) from ``gen`` (one draw a row) at speed v_min."""
+    velocity and draws nothing; the heading models take a heading at speed
+    v_min, ``fixed_theta`` where it is given (``EnvParams``'s parity hook:
+    no draw), else theta ~ U(0, 2pi) from ``gen`` (one draw a row)."""
     if _is_di(cfg):
         return torch.cat([row[:, :2], torch.zeros_like(row[:, 2:])], dim=-1)
-    theta = (2 * torch.pi) * torch.rand(row.shape[0], generator=gen, dtype=row.dtype,
-                                        device=row.device)
+    if fixed_theta is not None:
+        theta = torch.full_like(row[:, 2], fixed_theta)
+    else:
+        theta = (2 * torch.pi) * torch.rand(row.shape[0], generator=gen, dtype=row.dtype,
+                                            device=row.device)
     return torch.stack([row[:, 0], row[:, 1], theta, torch.full_like(theta, cfg.v_min)],
                        dim=-1)
 

@@ -10,11 +10,11 @@ Entity ordering on the graph axis matches the reference's ``World.entities``
 
 The port carries the ``rotate_tube_july`` scenario, the exit-gated
 ``rot_inv``, ``two_phase`` and ``three_phase`` scenarios and ``v4oct``
-(point landmark formation, all three vehicle models, the closed-form and
-rk45 integrators, obstacles and walls, no safety filter).  ``EnvState``
-holds only the fields those scenarios read or write (no ``goal_history``,
-safety-filter or sequential-scenario fields), and no RNG key: every random
-draw takes an explicit ``torch.Generator``.
+(the point, circle and line landmark formations, all three vehicle models,
+the closed-form and rk45 integrators, obstacles and walls, no safety
+filter).  ``EnvState`` holds only the fields those scenarios read or write
+(no ``goal_history``, safety-filter or sequential-scenario fields), and no
+RNG key: every random draw takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from ..config.physics import DynamicsType, RewardWeights, VehicleConfig
 Tensor = torch.Tensor
 
 SCENARIOS = ("rotate_tube_july", "rot_inv", "two_phase", "three_phase", "v4oct")
+FORMATIONS = ("point", "circle", "line")
 GATED_SCENARIOS = ("rot_inv", "two_phase", "three_phase")
 
 
@@ -57,6 +58,8 @@ class EnvParams:
     goal_rew: float = 50.0
     formation_rew: float = 1.0
     max_speed: float = 2.0
+    # landmark placement: 'point', 'circle' or 'line' (envs/reset.py)
+    formation_type: str = "point"
     reward_weights: RewardWeights = dataclasses.field(default_factory=RewardWeights)
     # entrance-gate ratios (july:611-613)
     gate_front_ratio: float = 0.08
@@ -66,10 +69,16 @@ class EnvParams:
     exit_front_ratio: float = 0.08
     # 'closed_form' (exact, the default) or 'rk45' (the scipy replica)
     integrator: str = "closed_form"
+    # parity hook: an agent frozen at its goal takes this heading instead of
+    # drawing one (the reference draws U(0, 2pi), core.py:324-333), so that
+    # two implementations can be held through whole episodes; no flag sets it
+    parity_fixed_reset_theta: Optional[float] = None
 
     def __post_init__(self):
         if self.scenario not in SCENARIOS:
             raise NotImplementedError(f"the torch port has no {self.scenario!r} scenario")
+        if self.formation_type not in FORMATIONS:
+            raise ValueError(f"unknown formation_type {self.formation_type!r}")
         if self.gated and self.num_walls:
             # the gated node features have rows for agents, landmarks and
             # obstacles only, while the adjacency also counts the walls: the

@@ -13,6 +13,9 @@ Shapes (single step):
 
 Each network splits into ``trunk`` (GNN + MLP, time-independent) and
 ``head`` (GRU + output, carries state), with ``post_gnn`` the trunk's tail.
+Under bfloat16 compute the trunk's features are bfloat16 and the head
+promotes them to the parameters' float32, as the JAX package's GRU and
+output layers do.
 """
 from __future__ import annotations
 
@@ -50,10 +53,10 @@ class GRActor(nn.Module):
         return self.post_gnn(obs, self.gnn_base(node_obs, adj, agent_id))
 
     def post_gnn(self, obs: Tensor, nbd: Tensor) -> Tensor:
-        return self.base(torch.cat([obs, nbd], dim=-1))
+        return self.base(torch.cat([obs, nbd.to(obs.dtype)], dim=-1))
 
     def head(self, features, rnn_states, masks, available_actions=None):
-        x = features
+        x = features.to(self.action_out.weight.dtype)
         if self.cfg.use_recurrent_policy:
             x, rnn_states = self.rnn(x, rnn_states, masks)
         logits = dist.mask_logits(self.action_out(x), available_actions)
@@ -91,11 +94,11 @@ class GRCritic(nn.Module):
 
     def post_gnn(self, cent_obs: Tensor, nbd: Tensor) -> Tensor:
         if self.cfg.use_cent_obs:
-            nbd = torch.cat([cent_obs, nbd], dim=-1)
+            nbd = torch.cat([cent_obs, nbd.to(cent_obs.dtype)], dim=-1)
         return self.base(nbd)
 
     def head(self, features, rnn_states, masks):
-        x = features
+        x = features.to(self.v_out.weight.dtype)
         if self.cfg.use_recurrent_policy:
             x, rnn_states = self.rnn(x, rnn_states, masks)
         return self.v_out(x), rnn_states

@@ -14,6 +14,12 @@ formulation averages the heads, gathers the actor's own node and pools the
 critic's graph, so the JAX package's ``gnn_concat_heads`` and
 ``actor/critic_graph_aggr`` fields, which select the dense per-graph GNN,
 are absent.
+
+``compute_dtype`` 'bfloat16' is the JAX package's compute dtype under its
+``gnn_impl='pallas_fused'`` trunk: the trunk runs in float32 whatever the
+compute dtype (the port's kernels as the JAX package's Pallas kernels), and
+bfloat16 enters at the trunk output and in the MLP tails
+(``models/nets.py``).  Parameters stay float32.
 """
 from __future__ import annotations
 
@@ -45,10 +51,18 @@ class ModelConfig:
     global_aggr_type: str = "mean"
     use_cent_obs: bool = False
     max_edge_dist: float = 1.0
+    # 'float32' or 'bfloat16' (the JAX package's models/config.py:115-119)
+    compute_dtype: str = "float32"
 
     def __post_init__(self):
         if self.global_aggr_type not in ("mean", "max", "add"):
             raise ValueError(f"bad global_aggr_type {self.global_aggr_type!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"bad compute_dtype {self.compute_dtype!r}")
+
+    @property
+    def bf16(self) -> bool:
+        return self.compute_dtype == "bfloat16"
 
     @property
     def gnn_out_dim(self) -> int:

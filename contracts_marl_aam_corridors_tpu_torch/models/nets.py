@@ -19,6 +19,24 @@ dense per-graph ``EmbedConv`` /
 ``TransformerConv`` modules compute the same function and are not ported.
 
 All LayerNorms use eps=1e-5 (torch's default, as in the JAX package).
+
+Under ``compute_dtype='bfloat16'`` the tails round where the JAX package's
+flax modules round as XLA compiles them (the trunk itself stays float32, as
+under the JAX package's ``pallas_fused`` trunk):
+
+* the trunk output is cast to bfloat16 before the gather or the pool (the
+  critic's mean and sum accumulate in float32, as ``jnp.mean`` does);
+* a ``Dense(dtype=bfloat16)`` rounds its input, kernel and bias, its
+  product and then the bias sum, each to bfloat16;
+* the activation takes the bfloat16 pre-activation and its float32 result
+  feeds the LayerNorm unrounded (XLA keeps the excess precision of the
+  upcast ``tanh``; relu is exact either way);
+* a ``LayerNorm(dtype=bfloat16)`` takes float32 statistics and rounds its
+  output to bfloat16 (torch's two-pass variance where flax takes
+  E[x^2] - E[x]^2: they differ in float32's last place, which with the
+  summation order moves a few outputs in 10,000 by one bfloat16 unit);
+* the float32 ``obs`` beside the actor's bfloat16 node feature, the GRU and
+  the output layers promote to float32.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ Tensor = torch.Tensor
 RELU_GAIN = math.sqrt(2.0)  # nn.init.calculate_gain('relu')
 TANH_GAIN = 5.0 / 3.0
 LN_EPS = 1e-5
+BF16 = torch.bfloat16
 
 
 def dense_init_(w: Tensor, cfg: ModelConfig, gain: float, gen: torch.Generator) -> None:
@@ -53,6 +72,18 @@ def _init_linear(lin: nn.Linear, cfg: ModelConfig, gain: float, gen: torch.Gener
 def _init_ln(ln: nn.LayerNorm) -> None:
     nn.init.ones_(ln.weight)
     nn.init.zeros_(ln.bias)
+
+
+def _dense_bf16(lin: nn.Linear, x: Tensor) -> Tensor:
+    """flax ``Dense(dtype=bfloat16)``: the product of the bfloat16 input and
+    kernel rounded to bfloat16, then the bfloat16 bias added and rounded."""
+    return torch.matmul(x.to(BF16), lin.weight.to(BF16).T) + lin.bias.to(BF16)
+
+
+def _layer_norm_bf16(ln: nn.LayerNorm, x: Tensor) -> Tensor:
+    """flax ``LayerNorm(dtype=bfloat16)``: float32 statistics, the output
+    rounded to bfloat16."""
+    return ln(x.to(torch.float32)).to(BF16)
 
 
 class MLPLayer(nn.Module):
@@ -75,7 +106,11 @@ class MLPLayer(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         act = torch.relu if self.cfg.use_relu else torch.tanh
         for i in range(1 + self.cfg.layer_N):
-            x = getattr(self, f"ln{i}")(act(getattr(self, f"fc{i}")(x)))
+            fc, ln = getattr(self, f"fc{i}"), getattr(self, f"ln{i}")
+            if self.cfg.bf16:
+                x = _layer_norm_bf16(ln, act(_dense_bf16(fc, x).to(torch.float32)))
+            else:
+                x = ln(act(fc(x)))
         return x
 
 
@@ -84,6 +119,7 @@ class MLPBase(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_dim: int):
         super().__init__()
+        self.cfg = cfg
         if cfg.use_feature_normalization:
             self.feature_norm = nn.LayerNorm(in_dim, eps=LN_EPS)
         self.mlp = MLPLayer(cfg, in_dim)
@@ -95,7 +131,7 @@ class MLPBase(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         if hasattr(self, "feature_norm"):
-            x = self.feature_norm(x)
+            x = _layer_norm_bf16(self.feature_norm, x) if self.cfg.bf16 else self.feature_norm(x)
         return self.mlp(x)
 
 
@@ -311,19 +347,28 @@ def _gnn_src_T(gnn: GNNBase, node_obs: Tensor) -> Tensor:
     return src.permute(1, 2, 0).reshape(E * src.shape[-1], B).contiguous()
 
 
-def _gnn_aggregate(out: Tensor, aggr: str, agent_id: Tensor | None, E: int, C: int) -> Tensor:
-    """Transposed (E*C, B) trunk output -> (B, C) per the aggregation."""
-    stack = out.reshape(E, C, -1)
+def _gnn_aggregate(out: Tensor, aggr: str, agent_id: Tensor | None, E: int, C: int,
+                   dtype=None) -> Tensor:
+    """Transposed (E*C, B) trunk output -> (B, C) per the aggregation, in
+    ``dtype`` (the output's own where None): the output is cast first, and
+    a mean or sum of bfloat16 accumulates in float32 and rounds once, as
+    ``jnp.mean`` and ``jnp.sum`` do."""
+    stack = out.reshape(E, C, -1).to(dtype or out.dtype)
+    acc = torch.promote_types(stack.dtype, torch.float32)
     if aggr == "node":
         idx = agent_id.reshape(1, 1, -1).to(torch.long).expand(1, C, stack.shape[-1])
         return torch.gather(stack, 0, idx)[0].T
     if aggr == "mean":
-        return stack.mean(dim=0).T
+        return stack.to(acc).mean(dim=0).to(stack.dtype).T
     if aggr == "max":
         return stack.amax(dim=0).T
     if aggr == "add":
-        return stack.sum(dim=0).T
+        return stack.to(acc).sum(dim=0).to(stack.dtype).T
     raise ValueError(f"bad aggr {aggr!r}")
+
+
+def _aggr_dtype(cfg: ModelConfig):
+    return BF16 if cfg.bf16 else None
 
 
 def _flatten_gnn_params(gnn: GNNBase, embed_layer_n: int, gnn_layer_n: int) -> tuple:
@@ -366,7 +411,7 @@ def gnn_transposed_apply(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: 
     out = gnn_trunk.gnn_trunk_forward(
         *_trunk_dims(cfg, E, src_T.shape[0] // E), _trunk_params(cfg, gnn, src_T.is_cuda),
         src_T, _adj_T(adj))
-    return _gnn_aggregate(out, aggr, agent_id, E, cfg.gnn_hidden_size)
+    return _gnn_aggregate(out, aggr, agent_id, E, cfg.gnn_hidden_size, _aggr_dtype(cfg))
 
 
 def gnn_transposed_apply_dual(cfg: ModelConfig, gnn_actor: GNNBase, gnn_critic: GNNBase,
@@ -386,5 +431,6 @@ def gnn_transposed_apply_dual(cfg: ModelConfig, gnn_actor: GNNBase, gnn_critic: 
     out_a, out_c = gnn_trunk.gnn_trunk_dual_forward(
         *_trunk_dims(cfg, E, src_a.shape[0] // E), _trunk_params(cfg, gnn_actor, src_a.is_cuda),
         _trunk_params(cfg, gnn_critic, src_a.is_cuda), src_a, src_c, _adj_T(adj))
-    return (_gnn_aggregate(out_a, "node", agent_id, E, C),
-            _gnn_aggregate(out_c, critic_aggr, None, E, C))
+    dt = _aggr_dtype(cfg)
+    return (_gnn_aggregate(out_a, "node", agent_id, E, C, dt),
+            _gnn_aggregate(out_c, critic_aggr, None, E, C, dt))

@@ -1,7 +1,7 @@
 """Flagship training episodes and PPO update epochs of the torch port on
 the card, for comparing two trees of the repository on one card.
 
-    python scripts/torch_train_ab.py --root <repo root>
+    python scripts/torch_train_ab.py --root <repo root> [--compute_dtype bfloat16]
 
 Imports the port from ``--root``, builds its kernels, and runs the flagship
 episode of ``chip_smoke.py``'s train phase, with the envs, steps, PPO
@@ -10,10 +10,12 @@ script's directory, whichever tree ``--root`` names (july air_taxi, one
 minibatch, random weights): one warm-up episode, then five timed ones (host
 clock around work that ends in a synchronize); then a 2-epoch update on one
 collected buffer, timed three times and profiled once.  Prints one JSON line: the
-episode seconds, the update's wall ms an epoch, and its device ms an epoch
-in all and in the trunk backward kernel.  To compare a change with its
-parent, unpack ``git archive HEAD`` into a directory that ``.gitignore``
-lists and run parent, change, change, parent in one command.
+episode seconds, the update's wall ms an epoch, and its device ms and
+kernels an epoch, in all and in the trunk backward kernel.  To compare a
+change with its parent, unpack ``git archive HEAD`` into a directory that
+``.gitignore`` lists and run parent, change, change, parent in one command;
+to compare the compute dtypes, run float32, bfloat16, bfloat16, float32 on
+one root.
 """
 import argparse
 import importlib.util
@@ -36,6 +38,7 @@ def flagship():
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=".")
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     a = p.parse_args()
     cs = flagship()
     sys.path.insert(0, a.root)
@@ -52,7 +55,9 @@ def main() -> int:
     dev = torch.device("cuda")
     gnn_trunk.build_all()
     ep = EnvParams(cfg=vehicle_config("air_taxi"))
-    cfg = ModelConfig(max_edge_dist=ep.cfg.coordination_range)
+    # a tree from before bfloat16 compute takes no compute_dtype
+    dtype = {} if a.compute_dtype == "float32" else {"compute_dtype": a.compute_dtype}
+    cfg = ModelConfig(max_edge_dist=ep.cfg.coordination_range, **dtype)
     dims = PolicyDims(ep.obs_dim, ep.obs_dim * ep.num_agents, ep.num_entities,
                       ep.node_feat_dim, ep.num_actions)
     policy = GRMAPPOPolicy(cfg, dims)
@@ -89,9 +94,10 @@ def main() -> int:
     evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in evts) / 2e3
     bwd_ms = sum(e.self_device_time_total for e in evts if "gnn_trunk_bwd" in e.key) / 2e3
-    print(json.dumps({"root": a.root, "episode_s": eps, "episode_median_s": statistics.median(eps),
-                      "epoch_wall_ms": walls, "epoch_device_ms": dev_ms,
-                      "epoch_bwd_ms": bwd_ms}), flush=True)
+    print(json.dumps({"root": a.root, "compute_dtype": a.compute_dtype, "episode_s": eps,
+                      "episode_median_s": statistics.median(eps), "epoch_wall_ms": walls,
+                      "epoch_device_ms": dev_ms, "epoch_bwd_ms": bwd_ms,
+                      "epoch_kernels": sum(e.count for e in evts) / 2}), flush=True)
     return 0
 
 

@@ -34,6 +34,7 @@ from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import (
     load_run_config,
     merge_eval_args,
     restore_checkpoint,
+    warm_start_params,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,7 +47,8 @@ FLAGSHIP = ["--num_agents", "3", "--n_rollout_threads", "1024", "--episode_lengt
             "--ppo_epoch", "15", "--num_mini_batch", "1", "--data_chunk_length", "10"]
 # the shipped july checkpoint's recipe: unicycle, world 4, 9 actions
 ARGVS = {"default": [], "flagship": FLAGSHIP, "july_unicycle": july_recipe(150)}
-# the port computes in float32 and refuses the JAX default, bfloat16
+# the runs and comparisons written before the port computed in bfloat16 pin
+# float32, so that they go on holding what they held
 FLOAT32 = ["--compute_dtype", "float32"]
 
 
@@ -113,12 +115,16 @@ PORTED = {
     "obstacles": ["--num_obstacles", "3", "--num_agents", "5", "--num_landmarks", "5"],
     "walls": ["--num_walls", "2", "--num_agents", "10", "--num_landmarks", "10",
               "--dynamics_type", "double_integrator"],
+    "formation": ["--formation_type", "circle"],
+    "bfloat16": ["--compute_dtype", "bfloat16"],
 }
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_ported_env_params_match_jax(name):
-    argv = PORTED[name] + FLOAT32
+    """The row's settings build the JAX package's EnvParams and
+    ModelConfig, field for field."""
+    argv = FLOAT32 + PORTED[name]
     targs, jargs = flags.parse_all(argv), jflags.parse_all(argv)
     if name == "rk45":
         targs.integrator = jargs.integrator = "rk45"
@@ -132,7 +138,28 @@ def test_ported_env_params_match_jax(name):
     assert (tenv.scenario, tenv.num_actions, tenv.num_entities, tenv.node_feat_dim) == {
         "v4oct": ("v4oct", 25, 5, 8), "double_integrator": ("rotate_tube_july", 5, 5, 8),
         "rk45": ("rotate_tube_july", 25, 5, 8), "obstacles": ("rotate_tube_july", 25, 13, 8),
-        "walls": ("rotate_tube_july", 5, 22, 13)}[name]
+        "walls": ("rotate_tube_july", 5, 22, 13), "formation": ("rotate_tube_july", 25, 5, 8),
+        "bfloat16": ("rotate_tube_july", 25, 5, 8)}[name]
+    tcfg, jcfg = flags.build_model_config(targs), jflags.build_model_config(jargs)
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert tenv.formation_type == ("circle" if name == "formation" else "point")
+    assert tcfg.compute_dtype == ("bfloat16" if name == "bfloat16" else "float32")
+
+
+def test_compute_dtype_defaults_as_jax():
+    """No --compute_dtype: bfloat16 in both packages' ModelConfig; a
+    ModelConfig built in code computes in float32, as the JAX package's, and
+    refuses another dtype."""
+    tcfg = flags.build_model_config(flags.parse_all([]))
+    jcfg = jflags.build_model_config(jflags.parse_all([]))
+    assert tcfg.compute_dtype == jcfg.compute_dtype == "bfloat16"
+    from contracts_marl_aam_corridors_tpu.models import ModelConfig as JModelConfig
+    from contracts_marl_aam_corridors_tpu_torch.models import ModelConfig
+
+    assert ModelConfig().compute_dtype == JModelConfig().compute_dtype == "float32"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ModelConfig(compute_dtype="float16")
 
 
 def test_gated_scenario_with_walls_is_refused(tmp_path):
@@ -151,7 +178,6 @@ REFUSED = {
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "formation": (["--formation_type", "circle"], "A5.4"),
     "safety_filter": (["--use_safety_filter", "True"], "A8"),
     "dense_gnn": (["--gnn_impl", "dense"], "A6"),
     "edge_packed": (["--gnn_edge_packed", "True"], "A6"),
@@ -163,7 +189,10 @@ REFUSED = {
     # a directory of the reference's actor.pt weights (made by the test)
     "warm_start_actor_pt": (["--warm_start_dir", "{actor_pt}"], "A11"),
     "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], "A9"),
-    "bfloat16": (["--compute_dtype", "bfloat16"], "A13"),
+    # trunk shapes the kernels are not built for (the CPU's plain trunk
+    # would run them, the card's first launch would not)
+    "trunk_width": (["--gnn_hidden_size", "32"], "A6"),
+    "trunk_depth": (["--gnn_layer_N", "8"], "A6"),
 }
 
 
@@ -284,6 +313,48 @@ def test_cli_trains_restores_and_evaluates_obstacles_on_cpu(tmp_path):
     assert ts.params.actor.gnn_base.embed_layer.lin1.weight.shape[1] == 9
     rows = cli_eval.main(["--model_dir", models, "--cuda", "--render_episodes", "2",
                           "--episode_length", "5", "--run_dir", str(tmp_path / "eval")] + env)
+    assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
+
+
+def test_cli_trains_in_bfloat16_by_default_on_cpu(tmp_path):
+    """The JAX CLI's default command line, with no --compute_dtype: two tiny
+    episodes whose MLP tails compute in bfloat16 (the parameters stay
+    float32), the checkpoint restored bit for bit and warm-started from,
+    then the eval CLI on it, which evaluates in float32 as the JAX
+    package's does."""
+    argv = SMALL[len(FLOAT32):]
+    assert "--compute_dtype" not in argv
+    run_dir, ts = cli_train.main(argv + ["--num_env_steps", str(2 * 8 * 5),
+                                         "--run_dir", str(tmp_path / "train")])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["step"] for r in records] == [40, 40, 80]
+    assert all(v == v and abs(v) != float("inf") for r in records for v in r.values())
+    models = os.path.join(run_dir, "models")
+    assert load_run_config(models)["compute_dtype"] == "bfloat16"
+    _, policy, trainer, _ = cli_train.build(flags.parse_all(argv), "cpu")
+    assert policy.cfg.compute_dtype == "bfloat16"
+    restored, episode = restore_checkpoint(models, trainer.init_state(99))
+    want, got = _state_tensors(ts), _state_tensors(restored)
+    assert episode == 1 and set(got) == set(want)
+    for k, v in want.items():
+        assert (torch.equal(got[k], v) and got[k].dtype == v.dtype
+                if isinstance(v, torch.Tensor) else got[k] == v), k
+    assert all(p.dtype == torch.float32 for p in ts.params.actor.parameters())
+    feats = ts.params.critic.base(torch.randn(4, ts.params.critic.cfg.gnn_hidden_size))
+    assert feats.dtype == torch.bfloat16
+    # a warm start from it takes its weights bit for bit and trains on
+    env_params = cli_train.build(flags.parse_all(argv), "cpu")[0]
+    warm = warm_start_params(models, trainer.init_state(7), env_params.obs_dim)
+    for side in ("actor", "critic"):
+        for k, v in getattr(ts.params, side).state_dict().items():
+            assert torch.equal(getattr(warm.params, side).state_dict()[k], v), (side, k)
+    _, ts_warm = cli_train.main(argv + ["--num_env_steps", str(8 * 5), "--warm_start_dir",
+                                        models, "--run_dir", str(tmp_path / "warm")])
+    assert all(torch.isfinite(p).all() for p in ts_warm.params.actor.parameters())
+    rows = cli_eval.main(["--model_dir", models, "--cuda", "--render_episodes", "2",
+                          "--num_agents", "3", "--episode_length", "5",
+                          "--run_dir", str(tmp_path / "eval")])
     assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
 
 
