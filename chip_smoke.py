@@ -28,13 +28,20 @@ CLIs then run end to end (BASELINE config 2, and 10 agents with 2 walls).
 The circle and line landmark formations run whole episodes from the numpy
 parity reset on the card against the CPU and train and evaluate through
 the CLIs, and the JAX CLI's default command line (bfloat16 compute) trains
-at the flagship shape.
+at the flagship shape.  The safety filters (the air taxi's HJ filter on the
+synthetic table, the double integrator's exponential CBF, ORCA) run their
+envs on the card against the CPU with every choice of the filters compared,
+and the flagship with HJ and BASELINE config 4 with the exponential CBF
+train and evaluate through the CLIs, as does the flagship with the
+curriculum and the critic on each agent's own observation.
 Prints one JSON line per phase (device, build, kernel, backward, dual, v2,
 rollout, eval, train, cli, checkpoint (one for each evaluation), eval_cli,
 gated_train, env_card, rk45_card, v4oct_train, v4oct_eval, walls_env_card,
 walls_trunk, obstacles_train, obstacles_eval, walls_train, walls_eval,
 formations_env_card, formations_train and formations_eval (one for each
-formation), bf16_train, bf16_eval, kernels), then
+formation), bf16_train, bf16_eval, safety_env_card, safety_train and
+safety_eval (one for each filter), safety_unfiltered_beside, a12_train,
+a12_eval, kernels), then
 the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
@@ -214,6 +221,31 @@ FORMATION_CMP_ENVS = 16  # their card-vs-CPU updates
 # (the loss: + BF16_ATOL)
 BF16_CMP_ENVS = 16
 BF16_RATIO, BF16_ATOL, BF16_GRAD_ATOL = 2.0, 2e-3, 2e-3
+# The safety filters.  Their envs card against CPU at env_card's protocol
+# (ENV_CARD_ENVS envs, ENV_CARD_STEPS steps, float64, ENV_TOL): july with
+# air_taxi and HJ on the synthetic table with every safety reward term on;
+# BASELINE config 4 (BASELINE.json:10: 10 agents, 10 landmarks, 2 walls,
+# the double integrator, world 4; E = 22) with the exponential CBF and with
+# ORCA; rot_inv with HJ.  A discrete choice of a filter (the neighbour, the
+# HJ branch, the coordination range, the filtered flag, a bound, ORCA's
+# most-violated constraint) that differs between the devices is counted
+# with its gap, the distance of the deciding quantity from the other
+# choice: a last-bit difference can flip one only within FLIP_GAP_BAR of a
+# tie, so a flip beyond it fails.  The env goes on from the CPU's state.
+SAFETY_ENV_CARD = [
+    ("july hj toggles", "air_taxi", dict(use_safety_filter=True, safety_filter_type="hj",
+                                         reward_toggles="all")),
+    ("config 4 exp_cbf", "double_integrator", dict(WALL_ENV, use_safety_filter=True,
+                                                   safety_filter_type="exp_cbf")),
+    ("config 4 rvo", "double_integrator", dict(WALL_ENV, use_safety_filter=True,
+                                               safety_filter_type="rvo")),
+    ("rot_inv hj", "air_taxi", dict(scenario="rot_inv", use_safety_filter=True,
+                                    safety_filter_type="hj")),
+]
+FLIP_GAP_BAR = 1e-9
+# the filtered trainings' card-vs-CPU update (the flagship's; config 4's is
+# WALL_CMP_ENVS)
+SAFETY_CMP_ENVS = 16
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
@@ -1384,12 +1416,13 @@ def main() -> int:
 
     update_profile, tcarry = update_profile_of(train_runner, tts, tcarry)
 
-    def first_epoch_grads(env_params, envs, specs):
+    def first_epoch_grads(env_params, envs, specs, **runner_kw):
         """The first epoch's gradients of one update on each side of
         ``specs`` ({side: (device, compute dtype)}, the first side on the
         card), from the same weights (tanh activations everywhere) and one
         buffer (a collect of ``envs`` envs of ``env_params`` by the first
-        side).  Returns the sides' trainers and states, their gradients by
+        side, its ``Runner`` given ``runner_kw``: the HJ table, the
+        centralized V).  Returns the sides' trainers and states, their gradients by
         leaf (on the CPU), their losses and the buffer on the card and on
         the CPU."""
         dims_ = PolicyDims(env_params.obs_dim, env_params.obs_dim * env_params.num_agents,
@@ -1404,7 +1437,7 @@ def main() -> int:
             sides[side] = (tr, tr.init_state(SEED + 7))
         tr_c, ts_c = next(iter(sides.values()))
         cmp_runner = Runner(env_params=env_params, policy=tr_c.policy, trainer=tr_c,
-                            n_rollout_threads=envs, episode_length=STEPS)
+                            n_rollout_threads=envs, episode_length=STEPS, **runner_kw)
         _, buf_c, _ = cmp_runner.collect(ts_c, cmp_runner.init_carry(SEED + 7))
         buf_h = dataclasses.replace(buf_c, **{
             f.name: getattr(buf_c, f.name).cpu() for f in dataclasses.fields(buf_c)
@@ -1423,7 +1456,7 @@ def main() -> int:
             totals[side] = total.item()
         return sides, first, totals, buf_c, buf_h
 
-    def update_card_vs_cpu(env_params, envs=CMP_ENVS):
+    def update_card_vs_cpu(env_params, envs=CMP_ENVS, **runner_kw):
         """One update, card (kernels) vs CPU (plain), from the same buffer
         (a collect of ``envs`` envs of ``env_params`` on the card) and
         weights, with tanh activations everywhere: the first epoch's
@@ -1431,7 +1464,8 @@ def main() -> int:
         norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst gradient's ratio
         to its bar, the largest gradient error and both sides' train info."""
         sides, first, _, buf_c, buf_h = first_epoch_grads(
-            env_params, envs, {"card": (dev, "float32"), "cpu": (torch.device("cpu"), "float32")})
+            env_params, envs, {"card": (dev, "float32"), "cpu": (torch.device("cpu"), "float32")},
+            **runner_kw)
         grad_err, worst_ratio = {}, 0.0
         for n, want in first["cpu"].items():
             err = (first["card"][n] - want).abs().max().item()
@@ -2183,7 +2217,7 @@ def main() -> int:
         return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
 
     def train_and_eval(label, argv, n_envs, cmp_envs, eval_argv, rollout_step, case=None,
-                       compare=None, profile=True):
+                       compare=None, profile=True, extra=None):
         compare = compare or update_card_vs_cpu
         label_ = label if case is None else f"{label} ({case})"
         t_train = time.perf_counter()
@@ -2250,11 +2284,13 @@ def main() -> int:
             if profile:
                 out["update_profile"], _ = update_profile_of(runner_, ts_,
                                                              runner_.init_carry(SEED + 6))
-            ratio_, grad_err_, infos_ = compare(env_, cmp_envs)
+            ratio_, grad_err_, infos_ = compare(env_, cmp_envs, hj_data=runner_.hj_data,
+                                                use_centralized_v=runner_.use_centralized_v)
             out["card_vs_cpu"] = {"envs": cmp_envs, "first_epoch_grad_worst_ratio_to_bar": ratio_,
                                   "first_epoch_grad_max_abs_err": grad_err_,
                                   "train_info_card": infos_["card"],
                                   "train_info_cpu": infos_["cpu"]}
+            out.update(extra or {})
             out["phase_seconds"] = time.perf_counter() - t_train
             emit({"phase": f"{label}_train", **out})
 
@@ -2421,7 +2457,7 @@ def main() -> int:
     # restore, an update profiled, one update's gradients card against CPU
     # at the bfloat16 bar; then the eval entry point (float32, as the JAX
     # package's)
-    def bf16_update_vs_cpu(env_params, envs):
+    def bf16_update_vs_cpu(env_params, envs, **runner_kw):
         """One update's first-epoch gradients in bfloat16 on the card and on
         the CPU and in float32 on the CPU, from one buffer and the same
         weights: each leaf's and the loss's card distance from the CPU's
@@ -2430,7 +2466,8 @@ def main() -> int:
         both bfloat16 sides' losses."""
         cpu_ = torch.device("cpu")
         _, first, totals, _, _ = first_epoch_grads(env_params, envs, {
-            "card": (dev, "bfloat16"), "cpu": (cpu_, "bfloat16"), "cpu_f32": (cpu_, "float32")})
+            "card": (dev, "bfloat16"), "cpu": (cpu_, "bfloat16"), "cpu_f32": (cpu_, "float32")},
+            **runner_kw)
         worst, card_err = 0.0, {}
         rows = [("loss", totals["card"], totals["cpu"], totals["cpu_f32"], BF16_ATOL)] + [
             (n, first["card"][n], first["cpu"][n], ref,
@@ -2455,6 +2492,196 @@ def main() -> int:
         "bf16", bf16_argv, TRAIN_ENVS, BF16_CMP_ENVS, ["--num_agents", str(ep.num_agents)],
         False, case="july default dtype", compare=bf16_update_vs_cpu)
 
+    # ---------------------------------------------------------------- safety_env_card
+    # the filtered envs on the card against the CPU, env_card's protocol with
+    # the filters' choices compared before every step (SAFETY_ENV_CARD)
+    from contracts_marl_aam_corridors_tpu_torch.config.physics import RewardToggles
+    from contracts_marl_aam_corridors_tpu_torch.envs import actions as action_mod
+    from contracts_marl_aam_corridors_tpu_torch.safety import hj as hj_mod
+
+    all_toggles = RewardToggles(safety_violation=True, hj_value=True, potential_conflict=True,
+                                diff_from_filtered_action=True)
+
+    def choices_differ(tr_c, tr_d, n_envs):
+        """Per env, whether any choice of the two traces differs, and each
+        differing choice's count and smallest and largest gap (the smaller
+        of the two devices' gaps at each flip)."""
+        differ = torch.zeros(n_envs, dtype=torch.bool)
+        flips = {}
+        for name, val in tr_c.items():
+            if name == "applied":
+                continue
+            (ch_c, gap_c), (ch_d, gap_d) = val, tr_d[name]
+            neq = ch_c != ch_d.cpu()
+            if neq.any():
+                gap = torch.minimum(gap_c, gap_d.cpu())[neq]
+                flips[name] = {"count": int(neq.sum()), "min_gap": gap.min().item(),
+                               "max_gap": gap.max().item()}
+                differ |= neq.reshape(n_envs, -1).any(dim=1)
+        return differ, flips
+
+    def safety_env_card_run(label, veh, kw):
+        """env_card_run on a filtered env: before each step both devices'
+        filters are traced on their own states with the step's controls;
+        an env where a choice differs is left out of that step's comparison
+        and goes on from the CPU's state.  Requires some agent-steps
+        filtered, and with HJ some on the evasive branch."""
+        kw = dict(kw)
+        if kw.pop("reward_toggles", None):
+            kw["reward_toggles"] = all_toggles
+        p_ = EnvParams(cfg=vehicle_config(veh), episode_length=ENV_CARD_STEPS, **kw)
+        heading = p_.safety_filter_type != "rvo" and veh != "double_integrator"
+        hj_c = hj_mod.make_synthetic_airtaxi_hj(p_.cfg) if heading else None
+        hj_d = hj_c.to(dev, torch.float64) if heading else None
+        table_c = torch.as_tensor(action_mod.action_table(p_.cfg, p_.total_actions),
+                                  dtype=torch.float64)
+        table_d = table_c.to(dev)
+        g_c = torch.Generator().manual_seed(SEED + 14)
+        g_d = torch.Generator(device=dev).manual_seed(SEED + 14)
+        s_c, _ = env_mod.reset(p_, ENV_CARD_ENVS, g_c, cpu, torch.float64)
+        s_d = to_dev(s_c)
+        rng = np.random.RandomState(SEED + 14)
+        n_, B_ = p_.num_agents, ENV_CARD_ENVS
+        err = dict.fromkeys(("obs", "node_obs", "adj", "reward", "action_diff"), 0.0)
+        done_equal = counters_equal = flags_equal = True
+        early_resets = resynced = filtered_n = evasive_n = flipped_steps = 0
+        flips, examples = {}, []
+        draws = p_.cfg.dynamics != DynamicsType.DOUBLE_INTEGRATOR
+        t0 = time.perf_counter()
+        for t in range(ENV_CARD_STEPS):
+            act = torch.as_tensor(rng.randint(0, p_.num_actions, (B_, n_)))
+            tr_c, tr_d = {}, {}
+            corridor_mod.safety_filter(p_, s_c.agent_states, table_c[act], hj_c, trace=tr_c)
+            corridor_mod.safety_filter(p_, s_d.agent_states, table_d[act.to(dev)], hj_d,
+                                       trace=tr_d)
+            flipped, step_flips = choices_differ(tr_c, tr_d, B_)
+            for name, f in step_flips.items():
+                tot = flips.setdefault(name, {"count": 0, "min_gap": math.inf, "max_gap": 0.0})
+                tot["count"] += f["count"]
+                tot["min_gap"] = min(tot["min_gap"], f["min_gap"])
+                tot["max_gap"] = max(tot["max_gap"], f["max_gap"])
+                if len(examples) < 12:
+                    examples.append({"step": t, "choice": name, **f})
+            flipped_steps += int(flipped.sum())
+            filtered_n += int(tr_c["filtered"][0].sum())
+            if "evasive" in tr_c:
+                evasive_n += int((tr_c["evasive"][0] & tr_c["applied"]).sum())
+            before_c = s_c
+            s_d, ts_d = env_mod.step(p_, s_d, act.to(dev), g_d, hj_d)
+            s_c, ts_c = env_mod.step(p_, s_c, act, g_c, hj_c)
+            reset = ts_c.done.all(dim=1)
+            froze = ((s_c.status & ~before_c.status).any(dim=1) & ~reset if draws
+                     else torch.zeros_like(reset))
+            same = ~flipped
+            done_equal &= torch.equal(ts_d.done.cpu()[same], ts_c.done[same])
+            for k in ("Num_agent_collisions", "Num_obst_collisions"):
+                counters_equal &= torch.equal(ts_d.info[k].cpu()[same], ts_c.info[k][same])
+            went_on = ~(reset | froze | flipped)
+            flags_equal &= torch.equal(s_d.safety_violations.cpu()[went_on],
+                                       s_c.safety_violations[went_on])
+            for k in err:
+                src_d, src_c = (s_d, s_c) if k == "action_diff" else (ts_d, ts_c)
+                a, b = getattr(src_d, k).cpu(), getattr(src_c, k)
+                keep = same if k == "reward" else went_on
+                a, b = a[keep], b[keep]
+                if a.numel():
+                    err[k] = max(err[k], (a - b).abs().max().item())
+            early = bool(reset.any()) and t < ENV_CARD_STEPS - 1
+            if froze.any() or flipped.any() or early:
+                early_resets += int(early)
+                resynced += int((froze | flipped).sum())
+                s_d = to_dev(s_c)  # go on from the CPU's state
+        torch.cuda.synchronize()
+        fresh = bool(reset.all()) and bool((s_c.t == 0).all()) and bool((s_d.t == 0).all())
+        agent_steps = ENV_CARD_STEPS * B_ * n_
+        filtered_share = filtered_n / agent_steps
+        evasive_share = evasive_n / agent_steps if heading else None
+        gaps_ok = all(f["max_gap"] <= FLIP_GAP_BAR for f in flips.values())
+        ok = (done_equal and counters_equal and flags_equal and max(err.values()) <= ENV_TOL
+              and fresh and filtered_share > 0 and (not heading or evasive_share > 0)
+              and gaps_ok)
+        return {"case": label, "scenario": p_.scenario, "vehicle": veh,
+                "filter": p_.safety_filter_type, "agents": n_, "walls": p_.num_walls,
+                "entities": p_.num_entities, "envs": B_, "steps": ENV_CARD_STEPS,
+                "reward_toggles": dataclasses.asdict(p_.reward_toggles),
+                "filtered_share": filtered_share, "evasive_share": evasive_share,
+                "flips": flips, "flip_examples": examples, "env_steps_with_a_flip": flipped_steps,
+                "flip_gap_bar": FLIP_GAP_BAR, "max_abs_err": err, "done_equal": done_equal,
+                "collision_counters_equal": counters_equal, "filtered_flags_equal": flags_equal,
+                "early_resets": early_resets, "envs_resynced": resynced,
+                "auto_reset_all": fresh, "seconds_card_and_cpu": time.perf_counter() - t0,
+                "ok": ok}
+
+    t_phase = time.perf_counter()
+    safety_rows = [safety_env_card_run(*c) for c in SAFETY_ENV_CARD]
+    emit({"phase": "safety_env_card", "tol": ENV_TOL, "cases": safety_rows,
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not all(r["ok"] for r in safety_rows):
+        raise AssertionError(f"the card's filtered envs differ from the CPU's: "
+                             f"{[r for r in safety_rows if not r['ok']]}")
+
+    # ---------------------------------------------------------------- safety_train, safety_eval
+    # the train entry point with --use_safety_filter True: the flagship (the
+    # air taxi's HJ filter on the synthetic table) and BASELINE config 4
+    # (the double integrator's exponential CBF) at walls_train's 256 envs,
+    # each through train_and_eval with its rollout step at N_ENVS envs
+    # profiled; config 4's unfiltered step profiled beside it
+    safety_flag = ["--use_safety_filter", "True"]
+    hj_out, hj_ev = train_and_eval(
+        "safety", common + flagship_n + safety_flag, TRAIN_ENVS, SAFETY_CMP_ENVS,
+        ["--num_agents", str(ep.num_agents)], True, case="july air_taxi hj", profile=False)
+    c4_argv = wall_argv + safety_flag
+    c4_env = cli_train.build(parse_all(c4_argv))[0]
+    if not (c4_env.use_safety_filter and c4_env.num_entities == 22):
+        raise AssertionError(f"config 4's flags built {c4_env}")
+    c4_out, c4_ev = train_and_eval(
+        "safety", c4_argv, WALL_ENVS, WALL_CMP_ENVS,
+        env_argv({k: v for k, v in WALL_ENV.items() if k in ("num_agents", "num_landmarks")}),
+        True, case="config 4 exp_cbf", profile=False)
+    _, _, w_trainer, w_runner = cli_train.build(parse_all(wall_argv))
+    w_ts = w_trainer.init_state(SEED)
+    w_roll = dataclasses.replace(w_runner, n_rollout_threads=N_ENVS)
+    dataclasses.replace(w_roll, episode_length=2).collect(w_ts, w_roll.init_carry(SEED + 3))
+    w_c0 = w_roll.init_carry(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_roll.collect(w_ts, w_c0)
+    torch.cuda.synchronize()
+    w_collect_s = time.perf_counter() - t0
+    emit({"phase": "safety_unfiltered_beside", "case": "config 4 without the filter",
+          "envs": N_ENVS, "steps": STEPS, "wall_ms_per_step": w_collect_s * 1e3 / STEPS,
+          "profile": collect_profile(w_roll, w_ts, SEED + 4, w_collect_s),
+          "flagship_unfiltered_profile": profile})
+
+    # ---------------------------------------------------------------- a12_train, a12_eval
+    # the flagship with the curriculum and the critic on each agent's own
+    # observation: two episodes, stages 1 and 5, each episode's rewards
+    # recorded inside the CLI by wrapping Runner.train_episode
+    stage_rews = []
+    real_train_episode = Runner.train_episode
+
+    def recording_train_episode(self, *a, **k):
+        stage_rews.append({"collision_rew": self.env_params.collision_rew,
+                           "formation_rew": self.env_params.formation_rew,
+                           "use_centralized_v": self.use_centralized_v})
+        return real_train_episode(self, *a, **k)
+
+    a12_argv = common + flagship_n + ["--use_curriculum", "True", "--use_centralized_V"]
+    base_c = parse_all(a12_argv)
+    Runner.train_episode = recording_train_episode
+    try:
+        a12_out, a12_ev = train_and_eval(
+            "a12", a12_argv, TRAIN_ENVS, SAFETY_CMP_ENVS, ["--num_agents", str(ep.num_agents)],
+            False, case="july curriculum, centralized V off", profile=False,
+            extra={"episode_rewards": stage_rews})
+    finally:
+        Runner.train_episode = real_train_episode
+    want_rews = [{"collision_rew": base_c.collision_rew * st / 10,
+                  "formation_rew": base_c.formation_rew * st / 10, "use_centralized_v": False}
+                 for st in (1, 5)]
+    if stage_rews != want_rews:
+        raise AssertionError(f"the curriculum's episodes took {stage_rews}, expected {want_rews}")
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -2474,6 +2701,11 @@ def main() -> int:
         "formations_eval_launches": {"july circle": circle_ev[0], "v4oct line": line_ev[0]},
         "bf16_train_launches": bf16_out["trunk_launches"]["forward"],
         "bf16_eval_launches": bf16_ev[0],
+        "safety_train_launches": {"july hj": hj_out["trunk_launches"]["forward"],
+                                  "config 4 exp_cbf": c4_out["trunk_launches"]["forward"]},
+        "safety_eval_launches": {"july hj": hj_ev[0], "config 4 exp_cbf": c4_ev[0]},
+        "a12_train_launches": a12_out["trunk_launches"]["forward"],
+        "a12_eval_launches": a12_ev[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
@@ -2493,6 +2725,9 @@ def main() -> int:
             "july circle": circle_out["trunk_launches"]["backward"],
             "v4oct line": line_out["trunk_launches"]["backward"]},
         "bf16_train_launches": bf16_out["trunk_launches"]["backward"],
+        "safety_train_launches": {"july hj": hj_out["trunk_launches"]["backward"],
+                                  "config 4 exp_cbf": c4_out["trunk_launches"]["backward"]},
+        "a12_train_launches": a12_out["trunk_launches"]["backward"],
         "max_abs_err": bwd_max_err,
         "ms_by_shape": {f"E{r['E']}_Ds{r['Ds']}_B{r['B']}_{'relu' if r['acts'][1] else 'tanh'}":
                         r["ms"] for r in walls_trunk if r["row"] == 2},

@@ -39,7 +39,10 @@ def run_eval(args, params, policy, runner, env_params, episodes: int) -> list[di
     ``run_eval``, cli/eval.py:22-117, without the gif frames): one row of
     stats per episode.  Success counts an agent that froze on its goal
     before the time limit or holds a goal at the last step before the
-    episode ended."""
+    episode ended.  A run trained with the safety filter is evaluated with
+    it (the run's flags are merged); the air taxi's HJ filter takes the
+    runner's table, which the JAX package's ``run_eval`` does not pass
+    (cli/eval.py:38), so there its step raises."""
     from ..envs import env as env_mod
 
     device = policy.device
@@ -58,7 +61,8 @@ def run_eval(args, params, policy, runner, env_params, episodes: int) -> list[di
             adj_rep = ts.adj[0].expand(N, E, E)
             actions, h = policy.act(params, None, ts.obs[0], ts.node_obs[0], adj_rep,
                                     ts.agent_id[0], h, masks, avail, deterministic=True)
-            state, ts = env_mod.step(env_params, state, actions[:, 0][None], gen)
+            state, ts = env_mod.step(env_params, state, actions[:, 0][None], gen,
+                                     runner.hj_data)
             done = ts.done[0]
             ep_rew += ts.reward.mean().item()
             done_f = done[:, None].to(masks.dtype)

@@ -24,17 +24,38 @@ to two/three_phase's 15):
         --scenario_name three_phase_graph --warm_start_dir \
         model_weights_torch/rot_inv/airtaxi ...
 
+``--use_curriculum True`` scales ``collision_rew``, ``formation_rew`` and
+``fair_rew`` by ``stage / 10``, ``stage = int(clip(episode / episodes, 0.1,
+1) * 10)`` (the reference's ``update_curriculum``, july:424-438, in the JAX
+package's ten stages), and ``--increase_fairness True`` sets ``fair_rew``
+to 10 at half the episodes, before the curriculum's step of that episode,
+as in the JAX package.  Each change swaps the env parameters of the runner
+that trains and evaluates; the ``TrainState``, the rollout carry and the
+generators go on.  ``config.json`` is written from the flags at every
+checkpoint, so it records the rewards of the checkpoint's stage, as the
+JAX package's does, and the eval CLI's ``merge_eval_args`` evaluates with
+them.  ``--use_centralized_V`` (a store_false flag) gives the critic each
+agent's own observation; with ``--use_cent_obs True`` as well the critic's
+input is narrower than the layers built for it, which the JAX package's
+first update stops on, and the port refuses before the run writes
+anything.  ``--use_safety_filter True`` filters every env step's controls
+(``envs/corridor.py safety_filter``); for the air taxi with
+``--safety_filter_type hj`` it reads the HJ table from
+``--safety_value_fn``, or uses the synthetic table where that file is
+missing, as the JAX package does.
+
 Differences from the JAX package: one device (no data mesh, ROADMAP A10);
 the classic-MPE path (``build_mpe``/``main_mpe``) waits for ROADMAP A9;
-``--use_curriculum``, ``--fuse_gnn_trunks``, ``--use_centralized_V`` (off)
-and a warm start from the reference's ``actor.pt`` weights are refused,
-naming the ROADMAP item that brings them; seeds are integers drawn from
-``--seed``, not JAX keys.  ``--compute_dtype`` defaults to bfloat16, as the
-JAX package's does: the MLP tails compute in bfloat16, the GNN trunk in
-float32 (``models/nets.py``).
+``--fuse_gnn_trunks``, a warm start from the reference's ``actor.pt``
+weights and graphs of more entities than the trunk kernels take are
+refused, naming the ROADMAP item that brings them; seeds are integers
+drawn from ``--seed``, not JAX keys.  ``--compute_dtype`` defaults to
+bfloat16, as the JAX package's does: the MLP tails compute in bfloat16, the
+GNN trunk in float32 (``models/nets.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -48,14 +69,14 @@ def build(args, device=None):
     from ..config.flags import build_env_params, build_model_config, not_ported
     from ..learner import GRMAPPOTrainer, Runner
     from ..models import GRMAPPOPolicy, PolicyDims
+    from ..ops.gnn_trunk import MAX_ENTITIES
 
     if args.fuse_gnn_trunks:
         raise not_ported("--fuse_gnn_trunks", "A11")
-    if args.use_curriculum:
-        raise not_ported("--use_curriculum", "A12")
-    if not args.use_centralized_V:
-        raise not_ported("--use_centralized_V (a critic without the shared observation)", "A12")
     env_params = build_env_params(args)
+    if env_params.num_entities > MAX_ENTITIES:
+        raise not_ported(f"graphs of more than {MAX_ENTITIES} entities (agents, landmarks, "
+                         f"obstacles and walls: {env_params.num_entities})", "A6")
     cfg = build_model_config(args)
     dims = PolicyDims(
         obs_dim=env_params.obs_dim,
@@ -98,10 +119,26 @@ def build(args, device=None):
         use_gae=args.use_gae,
         use_proper_time_limits=args.use_proper_time_limits,
     )
+    # the HJ table of the air taxi's safety filter (train_mpe.py:104-116):
+    # the reference's pickle is absent upstream, so the synthetic
+    # distance-based table stands in where the file is missing
+    hj_data = None
+    if env_params.use_safety_filter and args.safety_filter_type == "hj" \
+            and args.dynamics_type == "air_taxi":
+        from ..safety import hj as hj_mod
+
+        table = dict(device=policy.device, dtype=torch.float32)
+        if os.path.exists(args.safety_value_fn):
+            hj_data = hj_mod.load_hj_pickle(
+                args.safety_value_fn, env_params.cfg.separation_distance, **table)
+        else:
+            print(f"[safety] {args.safety_value_fn} not found; using the "
+                  "synthetic HJ table (safety.make_synthetic_airtaxi_hj)")
+            hj_data = hj_mod.make_synthetic_airtaxi_hj(env_params.cfg, **table)
     runner = Runner(
         env_params=env_params, policy=policy, trainer=trainer,
         n_rollout_threads=args.n_rollout_threads, episode_length=args.episode_length,
-        device=device,
+        use_centralized_v=args.use_centralized_V, device=device, hj_data=hj_data,
     )
     return env_params, policy, trainer, runner
 
@@ -110,7 +147,7 @@ def main(argv=None):
     """Train from the command line ``argv`` (the JAX package's ``main``,
     cli/train.py:251-426, graph path).  Returns the run directory and the
     final ``TrainState``, the one the last checkpoint holds."""
-    from ..config.flags import not_ported, parse_all
+    from ..config.flags import build_env_params, not_ported, parse_all
     from ..utils.checkpoint import (
         arch_act_flags, restore_checkpoint, save_checkpoint, warm_start_checkpoint,
         warm_start_params,
@@ -169,8 +206,33 @@ def main(argv=None):
         f"{args.scenario_name} | {args.num_agents} agents | "
         f"{args.n_rollout_threads} envs on {policy.device} | {episodes} episodes"
     )
+    base_rews = (args.collision_rew, args.formation_rew, args.fair_rew)
+    cur_stage = -1
+
+    def rebuild():
+        # the rewards are EnvParams fields only: the policy, the trainer and
+        # the HJ table stay, and so do the TrainState and the carry
+        nonlocal runner
+        runner = dataclasses.replace(runner, env_params=build_env_params(args))
+
     start = time.time()
     for episode in range(start_episode, episodes):
+        # the mid-training fairness bump (graph_mpe_runner.py:56-61)
+        if args.increase_fairness and episode == episodes // 2:
+            args.fair_rew = 10
+            base_rews = (args.collision_rew, args.formation_rew, args.fair_rew)
+            rebuild()
+        # the curriculum (JAX cli/train.py:362-374), in tenths
+        if args.use_curriculum:
+            ratio = min(max(episode / max(episodes, 1), 0.1), 1.0)
+            stage = int(ratio * 10)
+            if stage != cur_stage:
+                cur_stage = stage
+                s = stage / 10.0
+                args.collision_rew = base_rews[0] * s
+                args.formation_rew = base_rews[1] * s
+                args.fair_rew = base_rews[2] * s
+                rebuild()
         if args.use_linear_lr_decay:
             policy.lr_decay(ts, episode, episodes)
         ts, carry, train_info, env_info = runner.train_episode(ts, carry, gen)

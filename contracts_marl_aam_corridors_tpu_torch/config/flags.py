@@ -16,12 +16,15 @@ nothing runs in its place.  Settings that change nothing on the july path
 are taken as the JAX package takes them: ``--fair_rew`` and
 ``--increase_fairness`` (which only raises it), ``--use_dones`` and
 ``--graph_feat_type`` (the env reads none of them), ``--weight_decay`` (the
-JAX package's Adam takes none), and ``--gnn_impl`` transposed or
-pallas_fused (the port's one trunk formulation, transposed, is the function
-both compute).  ``--compute_dtype`` defaults to bfloat16, as there, and
-takes the JAX package's ``pallas_fused`` semantics: the trunk in float32,
-the MLP tails in bfloat16 (``models/nets.py``).  Trunk widths, embed depths
-and conv depths the kernels are not built for are refused (ROADMAP A6).
+JAX package's Adam takes none), ``--safety_ttr_fn``,
+``--terminate_on_violation`` and ``--safety_penalty`` (read by nothing
+there either), and ``--gnn_impl`` transposed or pallas_fused (the port's
+one trunk formulation, transposed, is the function both compute).
+``--compute_dtype`` defaults to bfloat16, as there, and takes the JAX
+package's ``pallas_fused`` semantics: the trunk in float32, the MLP tails
+in bfloat16 (``models/nets.py``).  Trunk widths, embed depths and conv
+depths the kernels are not built for are refused (ROADMAP A6), and so are
+graphs of more entities (``cli/train.py build``).
 """
 from __future__ import annotations
 
@@ -315,8 +318,6 @@ def build_env_params(args):
     scenario = scenario_kind(args.scenario_name)
     if scenario.startswith("sequential") or scenario == "fairassign":
         raise not_ported(f"the {scenario} scenario", "A7")
-    if args.use_safety_filter:
-        raise not_ported("the safety filter", "A8")
     cfg = vehicle_config(args.dynamics_type)
     args.max_edge_dist = cfg.coordination_range
     return EnvParams(
@@ -334,6 +335,8 @@ def build_env_params(args):
         formation_rew=args.formation_rew,
         max_speed=args.max_speed,
         formation_type=args.formation_type,
+        use_safety_filter=args.use_safety_filter,
+        safety_filter_type=args.safety_filter_type,
     )
 
 

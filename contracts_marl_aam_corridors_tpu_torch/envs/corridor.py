@@ -37,7 +37,13 @@ every wall has the reference's default geometry; with walls the july and
 v4oct node rows take the 13-dim layout.  The gated scenarios' node rows
 have no wall rows, so ``EnvParams`` refuses them with walls.
 
-Sequential, fairassign and the safety filter are not ported yet.
+With ``use_safety_filter`` the decoded controls of every agent, frozen ones
+included, pass the safety filter before the integration
+(``safety_filter``; core.py:691-736), and the july reward adds the safety
+terms its ``reward_toggles`` turn on between its two clips.  The gated and
+v4oct rewards take no such terms, but their steps are filtered too.
+
+Sequential and fairassign are not ported yet.
 """
 from __future__ import annotations
 
@@ -46,7 +52,9 @@ import math
 
 import torch
 
+from ..config.physics import DynamicsType
 from ..ops import distance as dist_ops
+from ..safety import cbf as cbf_mod, hj as hj_mod, rvo as rvo_mod
 from . import actions as action_mod
 from . import dynamics
 from . import tube as tube_mod
@@ -608,15 +616,64 @@ def _reward_one_agent_v4oct(params: EnvParams, state: EnvState, values: Tensor,
     return rew
 
 
+def _safety_reward_addons(params: EnvParams, state: EnvState, values: Tensor, i: int,
+                          hj_pair: Tensor | None) -> Tensor:
+    """The toggled safety reward terms of agent ``i`` (july:1208-1218),
+    added between the july reward's two clips; every toggle defaults off
+    (RewardBinaryConfig, multiagent/config.py:146-155)."""
+    tg = params.reward_toggles
+    w = params.reward_weights
+    cfg = params.cfg
+    n = params.num_agents
+    rew = torch.zeros_like(values[:, 0, 0])
+    pos = values[..., :2]
+    rel = pos - pos[:, i : i + 1]
+    d = _norm(rel)
+    others_alive = (torch.arange(n, device=values.device) != i) & ~state.status
+    zero = torch.zeros_like(d)
+
+    if tg.safety_violation:
+        # reward_safety_violation (july:1057-1062): per agent within the
+        # separation distance
+        conflict = others_alive & (d <= cfg.separation_distance)
+        rew = rew + w.safety_violation * conflict.sum(dim=-1).to(rew.dtype)
+    if tg.potential_conflict:
+        # reward_multiple_engagement (july:1064-1085)
+        eng_dist = cfg.engagement_distance
+        eng = others_alive & (d <= eng_dist)
+        closeness = 1.0 - torch.clamp(
+            (d - cfg.separation_distance) / (eng_dist - cfg.separation_distance), 0, 1)
+        vel = dynamics.velocity_of(values, cfg)
+        dirv = rel / (d[..., None] + 1e-8)
+        closing = (dirv * (vel - vel[:, i : i + 1])).sum(dim=-1)
+        closing = torch.abs(torch.minimum(zero, closing))
+        pen = torch.where(eng, closing * closeness, zero).sum(dim=-1)
+        rew = rew + torch.where(eng.sum(dim=-1) > 1, w.potential_conflict * pen,
+                                torch.zeros_like(pen))
+    if tg.diff_from_filtered_action:
+        # reward_diff_from_filtered_action (july:1087-1090)
+        rew = rew + torch.where(~state.status[:, i],
+                                w.diff_from_filtered_action * state.action_diff[:, i],
+                                torch.zeros_like(rew))
+    if tg.hj_value and hj_pair is not None:
+        # reward_hj_value (july:1092-1102), eps_hj = 0.4
+        pen = torch.where(others_alive,
+                          torch.abs(torch.minimum(hj_pair[:, i] - 0.4, zero)), zero).sum(dim=-1)
+        rew = rew + w.hj_value * pen
+    return rew
+
+
 def _reward_one_agent(
-    params: EnvParams, state: EnvState, values: Tensor, i: int, gen: torch.Generator
+    params: EnvParams, state: EnvState, values: Tensor, i: int, gen: torch.Generator,
+    hj_pair: Tensor | None = None,
 ) -> Tensor:
     """Reward for agent ``i`` with its in-step mutations (july ``reward``
     :1105-1221).  Writes the ``_REWARD_WRITES`` fields of ``state`` and row
     ``i`` of ``values`` in place; must run in agent-id order, since it reads
     the status and velocities earlier agents wrote this step.  The gated
     scenarios take ``_reward_one_agent_gated``, v4oct
-    ``_reward_one_agent_v4oct``.
+    ``_reward_one_agent_v4oct``.  ``hj_pair`` is the pairwise HJ values of
+    the ``hj_value`` term.
     """
     if params.gated:
         return _reward_one_agent_gated(params, state, values, i, gen)
@@ -722,8 +779,10 @@ def _reward_one_agent(
     state.phase_reached[:, i] = new_pr
     state.prev_phase[:, i] = cur2
 
-    # --- clips (july:1207, 1221) ---
+    # --- clips (july:1207, 1221), the safety terms between them ---
     rew = torch.clamp(rew, -4 * params.collision_rew, params.goal_rew * 5)
+    if params.use_safety_filter:
+        rew = rew + _safety_reward_addons(params, state, values, i, hj_pair)
     w = params.reward_weights
     return torch.clamp(rew, w.min_reward, w.max_reward)
 
@@ -835,16 +894,42 @@ def _info_dict(params: EnvParams, state: EnvState) -> dict:
     }
 
 
+def safety_filter(params: EnvParams, agent_states: Tensor, u: Tensor, hj_data=None,
+                  trace: dict | None = None):
+    """The safety filter on the decoded controls ``u`` (B, N, 2) of every
+    agent (core.py:691-736), dispatched as the JAX package's step does:
+    'rvo' is ORCA; otherwise the double integrator takes the exponential
+    CBF and a heading model the HJ filter, which needs ``hj_data``.
+    Returns (controls, filtered flags, action_diff); ``trace``: see
+    ``safety/cbf.py``."""
+    cfg = params.cfg
+    if params.safety_filter_type == "rvo":
+        out = rvo_mod.rvo_filter(agent_states, u, cfg, trace=trace)
+    elif cfg.dynamics == DynamicsType.DOUBLE_INTEGRATOR:
+        out = cbf_mod.di_exp_cbf_filter(agent_states, u, cfg, trace=trace)
+    else:
+        if hj_data is None:
+            raise ValueError(
+                "use_safety_filter with heading dynamics requires HJ value data "
+                "(safety.hj.load_hj_pickle / make_synthetic_airtaxi_hj)")
+        out = hj_mod.airtaxi_hj_filter(agent_states, u, hj_data, cfg, trace=trace)
+    return out[:3]
+
+
 def step(
-    params: EnvParams, state: EnvState, action_idx: Tensor, gen: torch.Generator
+    params: EnvParams, state: EnvState, action_idx: Tensor, gen: torch.Generator,
+    hj_data=None,
 ) -> tuple[EnvState, TimeStep]:
     """One environment step for a batch of envs; ``action_idx`` is (B, N).
 
     Order of operations of ``MultiAgentGraphEnv.step`` (environment.py:
-    1021-1063): counters, action decode (``_set_action``), ``world.step()``
+    1021-1063): counters, action decode (``_set_action``), the safety
+    filter where ``params.use_safety_filter`` is set, ``world.step()``
     physics, then the per-agent obs/reward/graph/done/info sweep in agent-id
     order.  ``gen`` supplies the goal-reach heading draws of the heading
-    models.  ``params.integrator`` picks the integrator.
+    models.  ``params.integrator`` picks the integrator.  ``hj_data`` is
+    the HJ table (``safety.hj.HjValueData``) of a heading model's filter,
+    on the state's device in its dtype.
     """
     cfg = params.cfg
     dtype = state.agent_states.dtype
@@ -857,6 +942,17 @@ def step(
         device=action_idx.device,
     )
     u = action_mod.decode(action_idx, table)
+    hj_pair = None
+    if params.use_safety_filter:
+        u, violations, action_diff = safety_filter(params, state.agent_states, u, hj_data)
+        state = dataclasses.replace(state, action_diff=action_diff,
+                                    safety_violations=violations)
+        if params.reward_toggles.hj_value and hj_data is not None:
+            # the pairwise HJ values of the hj_value term (july:1092-1102)
+            s = state.agent_states
+            rel = hj_mod.relative_state_airtaxi(s[:, :, None, :], s[:, None, :, :])
+            hj_pair, in_rng = hj_mod.interpolate(hj_data.lo, hj_data.hi, hj_data.values, rel)
+            hj_pair = torch.where(in_rng, hj_pair, torch.inf)
     active = ~state.status
     values = dynamics.integrate(state.agent_states, u, cfg, active, method=params.integrator)
     speed = dynamics.speed_of(values, cfg)
@@ -887,7 +983,7 @@ def step(
         if interleaved:
             # agent i's row sees the rewards of agents j < i (two/three_phase)
             obs_rows.append(_obs_gated_row(params, state, values, i))
-        rewards.append(_reward_one_agent(params, state, values, i, gen))
+        rewards.append(_reward_one_agent(params, state, values, i, gen, hj_pair))
         node_obs.append(_node_obs_for_agent(params, state, values, i))
     if interleaved:
         obs = torch.stack(obs_rows, dim=1)

@@ -54,7 +54,8 @@ def reset(
 
 
 def step(
-    params: EnvParams, state: EnvState, action_idx: torch.Tensor, gen: torch.Generator
+    params: EnvParams, state: EnvState, action_idx: torch.Tensor, gen: torch.Generator,
+    hj_data=None,
 ) -> tuple[EnvState, TimeStep]:
     """One step with auto-reset of every env whose agents are all done.
 
@@ -64,9 +65,10 @@ def step(
     never-cleared ``agent.previous_phase``, and so does v4oct's
     ``frozen_pos``.  A fresh state is drawn for every
     env and selected per env, so the step never waits on the device to learn
-    which envs are done.
+    which envs are done.  ``hj_data`` is the HJ table of a heading model's
+    safety filter (``corridor.step``).
     """
-    state2, ts = corridor.step(params, state, action_idx, gen)
+    state2, ts = corridor.step(params, state, action_idx, gen, hj_data)
     all_done = ts.done.all(dim=1)
 
     B = action_idx.shape[0]

@@ -69,6 +69,8 @@ def _blank_state(params: EnvParams, B: int, tube: TubeParams, dtype, device) -> 
         num_obstacle_collisions=zf(B, n),
         t=zi(B),
         sim_time=zf(B),
+        action_diff=zf(B, n),
+        safety_violations=torch.zeros((B, n), dtype=torch.bool, device=device),
     )
 
 

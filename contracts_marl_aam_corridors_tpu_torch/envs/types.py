@@ -11,10 +11,10 @@ Entity ordering on the graph axis matches the reference's ``World.entities``
 The port carries the ``rotate_tube_july`` scenario, the exit-gated
 ``rot_inv``, ``two_phase`` and ``three_phase`` scenarios and ``v4oct``
 (the point, circle and line landmark formations, all three vehicle models,
-the closed-form and rk45 integrators, obstacles and walls, no safety
-filter).  ``EnvState`` holds only the fields those scenarios read or write
-(no ``goal_history``, safety-filter or sequential-scenario fields), and no
-RNG key: every random draw takes an explicit ``torch.Generator``.
+the closed-form and rk45 integrators, obstacles and walls, the safety
+filters).  ``EnvState`` holds only the fields those scenarios read or write
+(no ``goal_history`` or sequential-scenario fields), and no RNG key: every
+random draw takes an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config.physics import DynamicsType, RewardWeights, VehicleConfig
+from ..config.physics import DynamicsType, RewardToggles, RewardWeights, VehicleConfig
 
 Tensor = torch.Tensor
 
@@ -61,6 +61,13 @@ class EnvParams:
     # landmark placement: 'point', 'circle' or 'line' (envs/reset.py)
     formation_type: str = "point"
     reward_weights: RewardWeights = dataclasses.field(default_factory=RewardWeights)
+    # the safety reward terms (all off by default; no flag sets them)
+    reward_toggles: RewardToggles = dataclasses.field(default_factory=RewardToggles)
+    # the safety filter on the decoded controls (corridor.safety_filter):
+    # 'rvo' is ORCA; any other type (the flag's 'hj', 'cbf', 'exp_cbf') is
+    # the double integrator's exponential CBF or a heading model's HJ filter
+    use_safety_filter: bool = False
+    safety_filter_type: str = "hj"
     # entrance-gate ratios (july:611-613)
     gate_front_ratio: float = 0.08
     gate_back_ratio: float = 0.02
@@ -219,6 +226,11 @@ class EnvState:
     # holds the first reset's spawn through every step and episode after.
     # Neighbour ranking and agent collisions read it.
     frozen_pos: Optional[Tensor] = None
+    # the safety filter's bookkeeping (core.py:691-736), zero at a reset and
+    # written by a filtered step: ||u_raw - u_filtered|| and the "filtered"
+    # flags, (B, N)
+    action_diff: Optional[Tensor] = None
+    safety_violations: Optional[Tensor] = None
 
 
 @dataclasses.dataclass
@@ -260,7 +272,7 @@ def env_state_from_numpy(fields: dict, device, dtype=torch.float64) -> EnvState:
     ``fields`` is keyed by the JAX package's ``EnvState`` field names, with
     ``tube`` a dict keyed by ``TubeParams`` names (for example built from a
     vmapped JAX state with ``np.asarray`` on each leaf).  Fields this slice
-    does not carry (``key``, ``goal_history``, safety and sequential fields)
+    does not carry (``key``, ``goal_history`` and the sequential fields)
     are ignored, and ``frozen_pos`` is None where ``fields`` has none.
     Floating arrays become ``dtype``, integer arrays ``torch.long``,
     booleans stay boolean.

@@ -12,7 +12,8 @@ Semantics preserved:
 - rnn states zeroed for done agents; masks[t+1]=0 at dones (insert:386-400);
 - active_masks 0 for done agents but reset to 1 for all-done envs whose
   auto-reset started a fresh episode (insert:401-407);
-- share_obs = concat of all agents' obs, repeated per agent (insert:410-422);
+- share_obs = concat of all agents' obs, repeated per agent (insert:410-422),
+  or each agent's own obs with ``use_centralized_v`` off;
 - bootstrap value from the post-rollout state (compute:430-443);
 - ``available_actions[t]`` stores the mask used to sample ``actions[t]``.
 """
@@ -59,18 +60,41 @@ class Runner:
     trainer: GRMAPPOTrainer
     n_rollout_threads: int
     episode_length: int
+    # the critic's observation: every agent's (True) or its own
+    # (--use_centralized_V off)
+    use_centralized_v: bool = True
     dtype: torch.dtype = torch.float32
     device: Optional[torch.device] = None
+    # the HJ table (safety.hj.HjValueData) of a heading model's safety
+    # filter, on the runner's device in the env's dtype; every env step of
+    # the collect and the evaluation takes it
+    hj_data: Optional[object] = None
 
     def __post_init__(self):
         dev = resolve_device(self.device)
         if dev != self.policy.device:
             raise ValueError(f"runner on {dev} but policy on {self.policy.device}")
         object.__setattr__(self, "device", dev)
+        cfg, dims = self.policy.cfg, self.policy.dims
+        if cfg.use_cent_obs and self._share_dim() != dims.cent_obs_dim:
+            # the critic's input layers are built for cent_obs_dim; the JAX
+            # package's first update stops on the shape (flax
+            # ScopeParamShapeError), the port before anything runs
+            raise ValueError(
+                f"--use_cent_obs feeds the critic the shared observation, whose width "
+                f"is {self._share_dim()} with use_centralized_v={self.use_centralized_v}, "
+                f"but the critic is built for cent_obs_dim {dims.cent_obs_dim}")
 
     # ------------------------------------------------------------- helpers
+    def _share_dim(self) -> int:
+        obs_dim = self.env_params.obs_dim
+        return obs_dim * self.env_params.num_agents if self.use_centralized_v else obs_dim
+
     def _share(self, obs: Tensor) -> Tensor:
-        """Centralized critic input: all agents' obs, repeated per agent."""
+        """The critic's observation: all agents' obs, repeated per agent, or
+        with ``use_centralized_v`` off each agent's own (JAX runner.py:73-78)."""
+        if not self.use_centralized_v:
+            return obs
         B, N = obs.shape[:2]
         return obs.reshape(B, 1, -1).expand(B, N, -1)
 
@@ -132,7 +156,7 @@ class Runner:
         actions_bn = unflat(actions)
 
         env_state, step_ts = env_mod.step(
-            self.env_params, carry.env_state, actions_bn[..., 0], carry.gen
+            self.env_params, carry.env_state, actions_bn[..., 0], carry.gen, self.hj_data
         )
         dones = step_ts.done  # (B, N) terminal dones (pre auto-reset)
         dones_env = dones.all(dim=1)
@@ -279,7 +303,8 @@ class Runner:
                 flat(agent_id),
                 flat(h), flat(masks), flat(avail), deterministic=True,
             )
-            state, st = env_mod.step(self.env_params, state, unflat(actions)[..., 0], gen)
+            state, st = env_mod.step(self.env_params, state, unflat(actions)[..., 0], gen,
+                                     self.hj_data)
             dones = st.done
             done_f = dones[..., None].to(self.dtype)
             if info is None:

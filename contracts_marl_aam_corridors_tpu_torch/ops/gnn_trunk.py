@@ -55,10 +55,12 @@ Tensor = torch.Tensor
 NEG_F32 = float(torch.finfo(torch.float32).min)
 LN_EPS = 1e-5
 # the trunk shapes the kernels are built for (csrc/gnn_trunk_panel.cuh: W,
-# kMaxEmbedLayers, kMaxTcLayers = 1 + gnn_layer_n); the plain versions take any
+# kMaxEmbedLayers, kMaxTcLayers = 1 + gnn_layer_n, kMaxEntities); the plain
+# versions take any
 KERNEL_WIDTH = 16
 MAX_EMBED_LAYERS = 4
 MAX_GNN_LAYERS = 7
+MAX_ENTITIES = 32
 
 KERNELS = ("gnn_trunk_fwd", "gnn_trunk_bwd", "gnn_trunk_dual_fwd", "gnn_trunk_dual_bwd",
            "gnn_forward_v2")

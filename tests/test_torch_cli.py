@@ -10,7 +10,11 @@ checkpoint restores bit for bit, and ``--model_dir`` restarts at the saved
 episode, as the JAX package's CLI does.  The eval CLI evaluates the shipped
 july checkpoint (``model_weights_torch/july/unicycle``), merges its run's
 flags as the JAX package's ``merge_eval_args`` does, and writes the JAX
-package's ``eval_stats.csv`` columns.
+package's ``eval_stats.csv`` columns.  The curriculum's schedule equals the
+JAX CLI's (that CLI run with its build and episode step stubbed), the
+safety filters train and evaluate through both CLIs, and a critic fed each
+agent's own observation where the layers expect the shared one is refused
+where the JAX package's stops on the shape.
 """
 import csv
 import dataclasses
@@ -18,17 +22,23 @@ import json
 import os
 import sys
 
+import flax
+import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
+from contracts_marl_aam_corridors_tpu.cli import train as jcli_train
 from contracts_marl_aam_corridors_tpu.config import flags as jflags
 from contracts_marl_aam_corridors_tpu.utils import checkpoint as jcheckpoint
 
 from contracts_marl_aam_corridors_tpu_torch.cli import eval as cli_eval
 from contracts_marl_aam_corridors_tpu_torch.cli import train as cli_train
 from contracts_marl_aam_corridors_tpu_torch.config import flags
+from contracts_marl_aam_corridors_tpu_torch.envs import env as tenv
 from contracts_marl_aam_corridors_tpu_torch.learner import PopArtState, ValueNormState
 from contracts_marl_aam_corridors_tpu_torch.ops import gnn_trunk
+from contracts_marl_aam_corridors_tpu_torch.utils import checkpoint as tcheckpoint
 from contracts_marl_aam_corridors_tpu_torch.utils.checkpoint import (
     _resolve_ckpt_path,
     load_run_config,
@@ -117,6 +127,17 @@ PORTED = {
               "--dynamics_type", "double_integrator"],
     "formation": ["--formation_type", "circle"],
     "bfloat16": ["--compute_dtype", "bfloat16"],
+    # the safety filters: the default air taxi's HJ, BASELINE config 4's env
+    # with the exponential CBF, and ORCA
+    "safety_hj": ["--use_safety_filter", "True"],
+    "safety_exp_cbf": ["--num_walls", "2", "--num_agents", "10", "--num_landmarks", "10",
+                       "--dynamics_type", "double_integrator", "--world_size", "4",
+                       "--use_safety_filter", "True", "--safety_filter_type", "exp_cbf"],
+    "safety_rvo": ["--dynamics_type", "double_integrator", "--use_safety_filter", "True",
+                   "--safety_filter_type", "rvo"],
+    # the runner options
+    "curriculum": ["--use_curriculum", "True"],
+    "centralized_v_off": ["--use_centralized_V"],
 }
 
 
@@ -139,12 +160,21 @@ def test_ported_env_params_match_jax(name):
         "v4oct": ("v4oct", 25, 5, 8), "double_integrator": ("rotate_tube_july", 5, 5, 8),
         "rk45": ("rotate_tube_july", 25, 5, 8), "obstacles": ("rotate_tube_july", 25, 13, 8),
         "walls": ("rotate_tube_july", 5, 22, 13), "formation": ("rotate_tube_july", 25, 5, 8),
-        "bfloat16": ("rotate_tube_july", 25, 5, 8)}[name]
+        "bfloat16": ("rotate_tube_july", 25, 5, 8), "safety_hj": ("rotate_tube_july", 25, 5, 8),
+        "safety_exp_cbf": ("rotate_tube_july", 5, 22, 13),
+        "safety_rvo": ("rotate_tube_july", 5, 5, 8), "curriculum": ("rotate_tube_july", 25, 5, 8),
+        "centralized_v_off": ("rotate_tube_july", 25, 5, 8)}[name]
     tcfg, jcfg = flags.build_model_config(targs), jflags.build_model_config(jargs)
     for f in dataclasses.fields(tcfg):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     assert tenv.formation_type == ("circle" if name == "formation" else "point")
     assert tcfg.compute_dtype == ("bfloat16" if name == "bfloat16" else "float32")
+    assert (tenv.use_safety_filter, tenv.safety_filter_type) == {
+        "safety_hj": (True, "hj"), "safety_exp_cbf": (True, "exp_cbf"),
+        "safety_rvo": (True, "rvo")}.get(name, (False, "hj"))
+    _, _, _, runner = cli_train.build(targs, "cpu")
+    assert runner.use_centralized_v == (name != "centralized_v_off") == targs.use_centralized_V
+    assert (runner.hj_data is not None) == (name == "safety_hj")
 
 
 def test_compute_dtype_defaults_as_jax():
@@ -178,14 +208,11 @@ REFUSED = {
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "safety_filter": (["--use_safety_filter", "True"], "A8"),
     "dense_gnn": (["--gnn_impl", "dense"], "A6"),
     "edge_packed": (["--gnn_edge_packed", "True"], "A6"),
     "concat_heads": (["--gnn_concat_heads"], "A6"),
     "actor_aggr": (["--actor_graph_aggr", "global"], "A6"),
     "fuse_trunks": (["--fuse_gnn_trunks", "True"], "A11"),
-    "curriculum": (["--use_curriculum", "True"], "A12"),
-    "centralized_v_off": (["--use_centralized_V"], "A12"),
     # a directory of the reference's actor.pt weights (made by the test)
     "warm_start_actor_pt": (["--warm_start_dir", "{actor_pt}"], "A11"),
     "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], "A9"),
@@ -193,6 +220,8 @@ REFUSED = {
     # would run them, the card's first launch would not)
     "trunk_width": (["--gnn_hidden_size", "32"], "A6"),
     "trunk_depth": (["--gnn_layer_N", "8"], "A6"),
+    # more graph entities than the kernels take (E = 40 > 32)
+    "entities": (["--num_agents", "20", "--num_landmarks", "20"], "A6"),
 }
 
 
@@ -356,6 +385,139 @@ def test_cli_trains_in_bfloat16_by_default_on_cpu(tmp_path):
                           "--num_agents", "3", "--episode_length", "5",
                           "--run_dir", str(tmp_path / "eval")])
     assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
+
+
+@pytest.mark.parametrize("kind", ["hj", "exp_cbf"])
+def test_cli_trains_and_evaluates_with_the_safety_filter_on_cpu(kind, tmp_path, capsys,
+                                                                 monkeypatch):
+    """Two tiny filtered episodes through the train CLI (the air taxi's HJ
+    filter on the synthetic table, as the JAX CLI falls back to it where the
+    reference's pickle is missing, and the double integrator's exponential
+    CBF), the checkpoint restored bit for bit, then the eval CLI on it,
+    which takes the run's filter from its config.json."""
+    argv = SMALL + ["--use_safety_filter", "True", "--safety_filter_type", kind]
+    if kind == "exp_cbf":
+        argv += ["--dynamics_type", "double_integrator"]
+    run_dir, ts = cli_train.main(argv + ["--num_env_steps", str(2 * 8 * 5),
+                                         "--run_dir", str(tmp_path / "train")])
+    synthetic = "not found; using the synthetic HJ table"
+    assert (synthetic in capsys.readouterr().out) == (kind == "hj")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r["step"] for r in records] == [40, 40, 80]
+    assert all(v == v and abs(v) != float("inf") for r in records for v in r.values())
+    models = os.path.join(run_dir, "models")
+    run_cfg = load_run_config(models)
+    assert (run_cfg["use_safety_filter"], run_cfg["safety_filter_type"]) == (True, kind)
+    _, _, trainer, runner = cli_train.build(flags.parse_all(argv), "cpu")
+    assert (runner.hj_data is not None) == (kind == "hj")
+    if kind == "hj":
+        assert runner.hj_data.values.dtype == torch.float32
+    restored, episode = restore_checkpoint(models, trainer.init_state(99))
+    want, got = _state_tensors(ts), _state_tensors(restored)
+    assert episode == 1 and set(got) == set(want)
+    for k, v in want.items():
+        assert (torch.equal(got[k], v) and got[k].dtype == v.dtype
+                if isinstance(v, torch.Tensor) else got[k] == v), k
+    filtered = []
+    real_step = tenv.step
+
+    def recording_step(*a, **k):
+        st, step_ts = real_step(*a, **k)
+        filtered.append(int(st.safety_violations.sum()))
+        return st, step_ts
+
+    monkeypatch.setattr(tenv, "step", recording_step)
+    rows = cli_eval.main(["--model_dir", models, "--cuda", "--render_episodes", "2",
+                          "--num_agents", "3", "--episode_length", "5",
+                          "--run_dir", str(tmp_path / "eval")])
+    assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
+    assert filtered and sum(filtered) > 0, "the evaluation filters"
+
+
+# the curriculum across ten episodes, with the fairness bump at half of them
+CURRICULUM = ["--use_curriculum", "True", "--increase_fairness", "True", "--collision_rew",
+              "5", "--formation_rew", "2", "--num_agents", "2", "--num_landmarks", "2",
+              "--n_rollout_threads", "1", "--episode_length", "2", "--ppo_epoch", "1",
+              "--num_env_steps", "20", "--use_wandb", "--seed", "4"]
+
+
+def test_curriculum_schedule_matches_jax(tmp_path, monkeypatch):
+    """The rewards of every build and of every checkpoint's config, through
+    ten episodes of both packages' train CLI with the curriculum and the
+    fairness bump (stages 1-9, the bump at episode 5 before that episode's
+    stage).  The JAX CLI runs with its ``build`` and episode step stubbed in
+    this test (nothing compiles); the port trains for real on the CPU."""
+    rews = lambda a: (a.collision_rew, a.formation_rew, a.fair_rew)
+    jbuilds, jsaves, tbuilds, tsaves = [], [], [], []
+
+    class Stub:
+        def init_state(self, key):
+            return {}
+
+        def init_carry(self, key):
+            return jnp.zeros(())
+
+        def train_episode(self, ts, carry, key):
+            return ts, carry, {}, {}
+
+    def stub_build(args):
+        jbuilds.append(rews(args))
+        return None, Stub(), Stub(), Stub()
+
+    monkeypatch.setattr(jcli_train, "build", stub_build)
+    monkeypatch.setattr(jcheckpoint, "save_checkpoint", lambda d, ts, ep, config: jsaves.append(
+        (ep, config["collision_rew"], config["formation_rew"], config["fair_rew"])))
+    jcli_train.main(CURRICULUM + ["--run_dir", str(tmp_path / "jax")])
+
+    real_build_env, real_save = flags.build_env_params, tcheckpoint.save_checkpoint
+
+    def recording_build_env(args):
+        tbuilds.append(rews(args))
+        return real_build_env(args)
+
+    def recording_save(save_dir, ts, episode, config=None):
+        tsaves.append((episode, config["collision_rew"], config["formation_rew"],
+                       config["fair_rew"]))
+        return real_save(save_dir, ts, episode, config=config)
+
+    monkeypatch.setattr(flags, "build_env_params", recording_build_env)
+    monkeypatch.setattr(tcheckpoint, "save_checkpoint", recording_save)
+    run_dir, _ = cli_train.main(FLOAT32 + CURRICULUM + ["--cuda", "--run_dir",
+                                                        str(tmp_path / "port")])
+    assert tbuilds == jbuilds and tsaves == jsaves
+    assert len(jbuilds) == 11  # the first build, stages 1-9 and the bump
+    assert jsaves[0] == (0, 0.5, 0.2, 0.1) and jsaves[-1][0] == 9
+    # the bump at episode 5 rebases the curriculum on the stage-4 rewards
+    assert jsaves[5] == (5, 1.0, 0.4, 5.0)
+    cfg = load_run_config(os.path.join(run_dir, "models"))
+    assert (cfg["collision_rew"], cfg["formation_rew"], cfg["fair_rew"]) == jsaves[-1][1:]
+
+
+def test_centralized_v_off_with_cent_obs_is_refused(tmp_path):
+    """``--use_centralized_V`` (off) with ``--use_cent_obs True`` feeds the
+    critic an observation narrower than the layers built for the shared
+    one: the JAX package's critic stops on the shape at its first call, and
+    the port refuses the run, naming both widths, before it writes
+    anything."""
+    argv = ["--use_centralized_V", "--use_cent_obs", "True", "--num_agents", "3"]
+    with pytest.raises(ValueError, match=r"width is 19 .* cent_obs_dim 57"):
+        cli_train.main(FLOAT32 + argv + ["--cuda", "--run_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir()), "a refused run writes nothing"
+    # the JAX side: the critic of the built policy, called as its runner
+    # calls it with the centralized V off (each agent's own observation)
+    jargs = jflags.parse_all(FLOAT32 + argv)
+    jenv_params, jpolicy, jtrainer, jrunner = jcli_train.build(jargs)
+    assert jrunner.use_centralized_v is False and jpolicy.dims.cent_obs_dim == 57
+    # traced for shapes only (jax.eval_shape): the shape check is flax's
+    ts = jax.eval_shape(jtrainer.init_state, jax.random.PRNGKey(0))
+    n, E, F = 3, jenv_params.num_entities, jenv_params.node_feat_dim
+    values = lambda p: jpolicy.get_values(
+        p, jnp.zeros((n, 19)), jnp.zeros((n, E, F)), jnp.ones((n, E, E)),
+        jnp.zeros((n, n), jnp.int32),
+        jnp.zeros((n, jpolicy.cfg.recurrent_n, jpolicy.cfg.hidden_size)), jnp.ones((n, 1)))
+    with pytest.raises(flax.errors.ScopeParamShapeError, match=r"\(35,\).*\(73,\)"):
+        jax.eval_shape(values, ts.params)
 
 
 # the shipped july checkpoint in the port's layout and its JAX original
