@@ -33,7 +33,12 @@ synthetic table, the double integrator's exponential CBF, ORCA) run their
 envs on the card against the CPU with every choice of the filters compared,
 and the flagship with HJ and BASELINE config 4 with the exponential CBF
 train and evaluate through the CLIs, as does the flagship with the
-curriculum and the critic on each agent's own observation.
+curriculum and the critic on each agent's own observation.  The dense
+per-graph GNN (plain torch) is held on the card against the CPU's float64
+and, at averaged heads, against the kernel trunk, and the flagship with
+``--gnn_impl dense`` and with ``--gnn_concat_heads`` (bfloat16) and
+BASELINE config 2 with the actor's global max pool train and evaluate
+through the CLIs without launching a trunk kernel.
 Prints one JSON line per phase (device, build, kernel, backward, dual, v2,
 rollout, eval, train, cli, checkpoint (one for each evaluation), eval_cli,
 gated_train, env_card, rk45_card, v4oct_train, v4oct_eval, walls_env_card,
@@ -41,7 +46,8 @@ walls_trunk, obstacles_train, obstacles_eval, walls_train, walls_eval,
 formations_env_card, formations_train and formations_eval (one for each
 formation), bf16_train, bf16_eval, safety_env_card, safety_train and
 safety_eval (one for each filter), safety_unfiltered_beside, a12_train,
-a12_eval, kernels), then
+a12_eval, dense_card, dense_train, dense_eval, concat_train, concat_eval,
+aggr_train, aggr_eval, kernels), then
 the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
@@ -246,6 +252,21 @@ FLIP_GAP_BAR = 1e-9
 # the filtered trainings' card-vs-CPU update (the flagship's; config 4's is
 # WALL_CMP_ENVS)
 SAFETY_CMP_ENVS = 16
+# The dense per-graph GNN (plain torch; --gnn_impl dense, --gnn_concat_heads,
+# --actor_graph_aggr global).  dense_card: (E, node features, graphs,
+# gradients) at the flagship update's 76,800 graphs of E = 6, BASELINE
+# config 2's E = 13 at 3,072 graphs and the walls' E = 22 (13 node features)
+# at 2,560, forward only (its (B, E, E, 16) message tensor under autograd at
+# an update's size would take several GB); the CPU's float32 and float64
+# forwards on the first DENSE_CPU_GRAPHS graphs of each.  The card's
+# float32 error from the CPU's float64 at most DENSE_F64_RATIO x the CPU
+# float32's + DENSE_F64_ATOL.  The dense trainings' card-vs-CPU or
+# dense-vs-kernel updates take DENSE_CMP_ENVS envs.
+DENSE_CARD_SHAPES = [(6, 8, 76_800, True), (13, 8, 3_072, True), (22, 13, 2_560, False)]
+DENSE_CPU_GRAPHS = 8_192
+DENSE_F64_RATIO, DENSE_F64_ATOL = 2.0, 1e-6
+DENSE_AGGRS = ("node", "mean", "max", "add")
+DENSE_CMP_ENVS = 16
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
@@ -1406,6 +1427,9 @@ def main() -> int:
             "kernels_per_epoch": sum(e.count for e in dev_evts) / prof_epochs,
             "trunk_fwd_kernel_ms_per_epoch": by("gnn_trunk_fwd") / 1e3 / prof_epochs,
             "trunk_bwd_kernel_ms_per_epoch": by("gnn_trunk_bwd") / 1e3 / prof_epochs,
+            # the trunk kernels' launches by the profiler's kernel names
+            "trunk_kernel_launches": sum(e.count for e in dev_evts
+                                         if re.search(r"gnn_(trunk|forward)", e.key)),
             "cudaLaunchKernel_host_ms_per_epoch": sum(
                 e.self_cpu_time_total for e in avg
                 if e.key == "cudaLaunchKernel") / 1e3 / prof_epochs,
@@ -1416,22 +1440,23 @@ def main() -> int:
 
     update_profile, tcarry = update_profile_of(train_runner, tts, tcarry)
 
-    def first_epoch_grads(env_params, envs, specs, **runner_kw):
+    def first_epoch_grads(env_params, envs, specs, cfg_kw=None, **runner_kw):
         """The first epoch's gradients of one update on each side of
-        ``specs`` ({side: (device, compute dtype)}, the first side on the
-        card), from the same weights (tanh activations everywhere) and one
-        buffer (a collect of ``envs`` envs of ``env_params`` by the first
-        side, its ``Runner`` given ``runner_kw``: the HJ table, the
-        centralized V).  Returns the sides' trainers and states, their gradients by
-        leaf (on the CPU), their losses and the buffer on the card and on
-        the CPU."""
+        ``specs`` ({side: (device, compute dtype[, ModelConfig fields])},
+        the first side on the card), from the same weights (tanh activations
+        everywhere, the fields of ``cfg_kw`` on every side) and one buffer (a
+        collect of ``envs`` envs of ``env_params`` by the first side, its
+        ``Runner`` given ``runner_kw``: the HJ table, the centralized V).
+        Returns the sides' trainers and states, their gradients by leaf (on
+        the CPU), their losses and the buffer on the card and on the CPU."""
         dims_ = PolicyDims(env_params.obs_dim, env_params.obs_dim * env_params.num_agents,
                            env_params.num_entities, env_params.node_feat_dim,
                            env_params.num_actions)
         sides = {}
-        for side, (d, dt) in specs.items():
+        for side, (d, dt, *side_kw) in specs.items():
             cfg_ = ModelConfig(max_edge_dist=env_params.cfg.coordination_range, use_relu=False,
-                               embed_use_relu=False, gnn_use_relu=False, compute_dtype=dt)
+                               embed_use_relu=False, gnn_use_relu=False, compute_dtype=dt,
+                               **(cfg_kw or {}), **(side_kw[0] if side_kw else {}))
             tr = GRMAPPOTrainer(GRMAPPOPolicy(cfg_, dims_, device=d), ppo_epoch=1,
                                 data_chunk_length=CHUNK)
             sides[side] = (tr, tr.init_state(SEED + 7))
@@ -1456,32 +1481,36 @@ def main() -> int:
             totals[side] = total.item()
         return sides, first, totals, buf_c, buf_h
 
-    def update_card_vs_cpu(env_params, envs=CMP_ENVS, **runner_kw):
-        """One update, card (kernels) vs CPU (plain), from the same buffer
-        (a collect of ``envs`` envs of ``env_params`` on the card) and
-        weights, with tanh activations everywhere: the first epoch's
-        gradients at the JAX bar, per leaf, and the update's losses and
-        norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst gradient's ratio
-        to its bar, the largest gradient error and both sides' train info."""
-        sides, first, _, buf_c, buf_h = first_epoch_grads(
-            env_params, envs, {"card": (dev, "float32"), "cpu": (torch.device("cpu"), "float32")},
-            **runner_kw)
+    def update_card_vs_cpu(env_params, envs=CMP_ENVS, cfg_kw=None, specs=None, **runner_kw):
+        """One update on the two sides of ``specs`` (by default the card's
+        kernels against the CPU's plain versions; ``first_epoch_grads``'
+        form), from the same buffer (a collect of ``envs`` envs of
+        ``env_params`` by the first side, on the card) and weights, with tanh
+        activations everywhere: the first side's first-epoch gradients
+        against the second's at the JAX bar, per leaf, and the update's
+        losses and norms at LOSS_RTOL / LOSS_ATOL.  Returns the worst
+        gradient's ratio to its bar, the largest gradient error and both
+        sides' train info."""
+        specs = specs or {"card": (dev, "float32"), "cpu": (torch.device("cpu"), "float32")}
+        sides, first, _, buf_c, buf_h = first_epoch_grads(env_params, envs, specs, cfg_kw,
+                                                          **runner_kw)
+        held, ref = list(sides)
         grad_err, worst_ratio = {}, 0.0
-        for n, want in first["cpu"].items():
-            err = (first["card"][n] - want).abs().max().item()
+        for n, want in first[ref].items():
+            err = (first[held][n] - want).abs().max().item()
             bar = GRAD_RTOL * want.abs().max().item() + GRAD_ATOL
             worst_ratio = max(worst_ratio, err / bar)
             grad_err[n] = err
             if err > bar:
-                raise AssertionError(f"card and CPU update gradients disagree on {n}: "
+                raise AssertionError(f"{held} and {ref} update gradients disagree on {n}: "
                                      f"{err} > {bar}")
         infos = {side: {k: v.item() for k, v in tr.train(
-                    st, buf_c if side == "card" else buf_h)[1].items()}
+                    st, buf_c if tr.policy.device.type == "cuda" else buf_h)[1].items()}
                  for side, (tr, st) in sides.items()}
-        for k, want in infos["cpu"].items():
-            if abs(infos["card"][k] - want) > LOSS_RTOL * abs(want) + LOSS_ATOL:
-                raise AssertionError(f"card and CPU update disagree on {k}: "
-                                     f"{infos['card'][k]} vs {want}")
+        for k, want in infos[ref].items():
+            if abs(infos[held][k] - want) > LOSS_RTOL * abs(want) + LOSS_ATOL:
+                raise AssertionError(f"{held} and {ref} update disagree on {k}: "
+                                     f"{infos[held][k]} vs {want}")
         return worst_ratio, max(grad_err.values()), infos
 
     worst_ratio, max_grad_err, infos = update_card_vs_cpu(ep)
@@ -2217,7 +2246,12 @@ def main() -> int:
         return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
 
     def train_and_eval(label, argv, n_envs, cmp_envs, eval_argv, rollout_step, case=None,
-                       compare=None, profile=True, extra=None):
+                       compare=None, profile=True, extra=None, episodes=WALLS_EPISODES,
+                       kernel_route=True, compare_key="card_vs_cpu"):
+        """The train CLI on ``argv`` (``episodes`` episodes), then the eval
+        CLI on its checkpoint.  ``kernel_route``: every trunk call through
+        rows 1 and 2, else (the dense GNN) none, by the wrappers' counts and
+        by the profiled update's kernel names."""
         compare = compare or update_card_vs_cpu
         label_ = label if case is None else f"{label} ({case})"
         t_train = time.perf_counter()
@@ -2229,14 +2263,15 @@ def main() -> int:
             torch.cuda.synchronize()
             seconds_ = time.perf_counter() - t0
             got_launches = [f.launches for f in all_counters]
-            want_launches = [WALLS_EPISODES * fwd_expected, WALLS_EPISODES * bwd_expected, 0, 0, 0]
+            want_launches = ([episodes * fwd_expected, episodes * bwd_expected, 0, 0, 0]
+                             if kernel_route else [0] * 5)
             if got_launches != want_launches:
                 raise AssertionError(f"{label_}: the training launched (fwd, bwd, dual fwd, dual "
                                      f"bwd, v2) {got_launches}, expected {want_launches}")
             with open(Path(run_dir_) / "metrics.jsonl") as f:
                 recs = [json.loads(line) for line in f]
             train_recs_ = [r for r in recs if "value_loss" in r]
-            if len(train_recs_) != WALLS_EPISODES or not all(
+            if len(train_recs_) != episodes or not all(
                     v == v and abs(v) != float("inf") for r in recs for v in r.values()):
                 raise AssertionError(f"{label_}: the training logged {recs}")
             models_ = Path(run_dir_) / "models"
@@ -2247,10 +2282,10 @@ def main() -> int:
                 torch.equal(back_[k], v) and back_[k].dtype == v.dtype
                 and back_[k].device == v.device
                 if isinstance(v, torch.Tensor) else back_.get(k) == v))
-            if saved_ != WALLS_EPISODES - 1 or set(back_) != set(held_) or differ_:
+            if saved_ != episodes - 1 or set(back_) != set(held_) or differ_:
                 raise AssertionError(f"{label_}: the checkpoint of episode {saved_} does not "
                                      f"restore bit for bit: {differ_[:5]}")
-            out = {"case": case, "argv": argv, "envs": n_envs, "episodes": WALLS_EPISODES,
+            out = {"case": case, "argv": argv, "envs": n_envs, "episodes": episodes,
                    "entities": env_.num_entities, "node_feat_dim": env_.node_feat_dim,
                    "graphs_per_update_trunk_call": n_envs * STEPS * env_.num_agents,
                    "seconds": seconds_,
@@ -2284,12 +2319,13 @@ def main() -> int:
             if profile:
                 out["update_profile"], _ = update_profile_of(runner_, ts_,
                                                              runner_.init_carry(SEED + 6))
+                if not kernel_route and out["update_profile"]["trunk_kernel_launches"]:
+                    raise AssertionError(f"{label_}: the profiled update ran trunk kernels")
             ratio_, grad_err_, infos_ = compare(env_, cmp_envs, hj_data=runner_.hj_data,
                                                 use_centralized_v=runner_.use_centralized_v)
-            out["card_vs_cpu"] = {"envs": cmp_envs, "first_epoch_grad_worst_ratio_to_bar": ratio_,
-                                  "first_epoch_grad_max_abs_err": grad_err_,
-                                  "train_info_card": infos_["card"],
-                                  "train_info_cpu": infos_["cpu"]}
+            out[compare_key] = {"envs": cmp_envs, "first_epoch_grad_worst_ratio_to_bar": ratio_,
+                                "first_epoch_grad_max_abs_err": grad_err_,
+                                **{f"train_info_{k}": v for k, v in infos_.items()}}
             out.update(extra or {})
             out["phase_seconds"] = time.perf_counter() - t_train
             emit({"phase": f"{label}_train", **out})
@@ -2299,7 +2335,7 @@ def main() -> int:
             ev_argv_ = ["--model_dir", str(models_)] + eval_argv + [
                 "--episode_length", str(STEPS), "--render_episodes", "2",
                 "--run_dir", str(Path(tmp_) / "eval")]
-            episodes_obst = []
+            episodes_obst, ev_steps = [], []
             real_reset, real_step = env_mod.reset, env_mod.step
 
             def counting_reset(*a, **k):
@@ -2309,26 +2345,34 @@ def main() -> int:
             def counting_step(*a, **k):
                 st_, ts_step = real_step(*a, **k)
                 episodes_obst[-1] = ts_step.info["Num_obst_collisions"].sum().item()
+                ev_steps.append(1)
                 return st_, ts_step
 
             for f in all_counters:
                 f.launches = 0
             env_mod.reset, env_mod.step = counting_reset, counting_step
+            t0 = time.perf_counter()
             try:
                 ev_rows_ = cli_eval.main(ev_argv_)
             finally:
                 env_mod.reset, env_mod.step = real_reset, real_step
             torch.cuda.synchronize()
+            ev_seconds = time.perf_counter() - t0
             ev_launches_ = [f.launches for f in all_counters]
         finite_ = all(v == v and abs(v) != float("inf") for r in ev_rows_ for v in r.values())
         emit({"phase": f"{label}_eval", "case": case,
               "argv": ["--model_dir", f"<{label}_train's models>"] + ev_argv_[2:-2],
               "rows": ev_rows_, "finite": finite_,
               "num_obst_collisions_per_episode": episodes_obst, "trunk_launches": ev_launches_,
+              "eval_seconds": ev_seconds, "eval_steps": len(ev_steps),
+              "wall_ms_per_step": ev_seconds * 1e3 / max(len(ev_steps), 1),
               "phase_seconds": time.perf_counter() - t_eval})
-        # one row-1 launch a step until every agent is done or the time limit
+        # one row-1 launch a step until every agent is done or the time
+        # limit on the kernel trunk, none on the dense GNN
+        row1_ok = (2 <= ev_launches_[0] <= 2 * STEPS if kernel_route
+                   else ev_launches_[0] == 0)
         if (len(ev_rows_) != 2 or not finite_ or ev_launches_[1:] != [0] * 4
-                or not 2 <= ev_launches_[0] <= 2 * STEPS or len(episodes_obst) != 2):
+                or not row1_ok or len(episodes_obst) != 2):
             raise AssertionError(f"{label_}: cli.eval gave {len(ev_rows_)} rows (finite "
                                  f"{finite_}), {len(episodes_obst)} episodes and launched "
                                  f"{ev_launches_}")
@@ -2457,17 +2501,18 @@ def main() -> int:
     # restore, an update profiled, one update's gradients card against CPU
     # at the bfloat16 bar; then the eval entry point (float32, as the JAX
     # package's)
-    def bf16_update_vs_cpu(env_params, envs, **runner_kw):
+    def bf16_update_vs_cpu(env_params, envs, cfg_kw=None, **runner_kw):
         """One update's first-epoch gradients in bfloat16 on the card and on
         the CPU and in float32 on the CPU, from one buffer and the same
-        weights: each leaf's and the loss's card distance from the CPU's
-        float32 within BF16_RATIO x the CPU bfloat16 distance + the atols.
-        Returns the worst ratio to the bar, the largest card distance and
-        both bfloat16 sides' losses."""
+        weights (the fields of ``cfg_kw`` on every side): each leaf's and
+        the loss's card distance from the CPU's float32 within BF16_RATIO x
+        the CPU bfloat16 distance + the atols.  Returns the worst ratio to
+        the bar, the largest card distance and both bfloat16 sides'
+        losses."""
         cpu_ = torch.device("cpu")
         _, first, totals, _, _ = first_epoch_grads(env_params, envs, {
             "card": (dev, "bfloat16"), "cpu": (cpu_, "bfloat16"), "cpu_f32": (cpu_, "float32")},
-            **runner_kw)
+            cfg_kw, **runner_kw)
         worst, card_err = 0.0, {}
         rows = [("loss", totals["card"], totals["cpu"], totals["cpu_f32"], BF16_ATOL)] + [
             (n, first["card"][n], first["cpu"][n], ref,
@@ -2682,6 +2727,190 @@ def main() -> int:
     if stage_rews != want_rews:
         raise AssertionError(f"the curriculum's episodes took {stage_rews}, expected {want_rews}")
 
+    # ---------------------------------------------------------------- dense_card
+    # the dense per-graph GNN (models/nets.py gnn_dense_nodes and
+    # dense_aggregate) on the card at DENSE_CARD_SHAPES: averaged and
+    # concatenated heads, relu and tanh, the node gather and the three
+    # pools.  The card's float32 forward against the CPU's float64 forward
+    # of the same module (first DENSE_CPU_GRAPHS graphs); at averaged heads
+    # the dense route against the kernel trunk (rows 1 and 2) on the same
+    # weights and graphs, all of them: forward at NET_TOL, and with tanh
+    # the parameter gradients of all four aggregations' sum at the JAX bar,
+    # or where the kernel's float32 gradient misses that bar against a
+    # float64 evaluation, the dense one within twice the kernel's distance
+    # from it (compare_leaves, the backward phase's criterion), or within
+    # the bar of the float64 evaluation itself.
+    import copy
+
+    t_phase = time.perf_counter()
+    dense_rows, dense_kernel_launches = [], [0, 0]
+    for E_, F_, B_, with_grads in DENSE_CARD_SHAPES:
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 20 + E_)
+        d_node, d_adj = random_graphs(B_, E_, cfg.max_edge_dist, g_, F=F_)
+        d_aid = torch.randint(0, 3, (B_, 1), generator=g_, device=dev)
+        n_cpu = min(B_, DENSE_CPU_GRAPHS)
+        cpu_in = (d_node[:n_cpu].cpu(), d_adj[:n_cpu].cpu(), d_aid[:n_cpu].cpu())
+        for concat in (False, True):
+            for relu in (True, False):
+                c_ = ModelConfig(max_edge_dist=cfg.max_edge_dist, gnn_concat_heads=concat,
+                                 gnn_impl="dense", use_relu=relu, embed_use_relu=relu,
+                                 gnn_use_relu=relu)
+                d_gnn = nets.GNNBase(c_, F_, "node")
+                d_gnn.init_(torch.Generator().manual_seed(SEED + 11))
+                cpu_gnn = copy.deepcopy(d_gnn)
+                d_gnn = d_gnn.to(dev)
+                row = {"E": E_, "node_feat_dim": F_, "graphs": B_, "cpu_graphs": n_cpu,
+                       "heads": "concat" if concat else "averaged",
+                       "act": "relu" if relu else "tanh"}
+                with torch.no_grad():
+                    card_nodes = nets.gnn_dense_nodes(c_, d_gnn, d_node, d_adj)
+                    torch.cuda.synchronize()
+                    finite = bool(torch.isfinite(card_nodes).all())
+                    cpu32 = nets.gnn_dense_nodes(c_, cpu_gnn, *cpu_in[:2])
+                    cpu64 = nets.gnn_dense_nodes(c_, cpu_gnn.double(), cpu_in[0].double(),
+                                                 cpu_in[1].double())
+                    ok, f64 = finite, {}
+                    for aggr in DENSE_AGGRS:
+                        agg = lambda x: nets.dense_aggregate(x, aggr, cpu_in[2].to(x.device))
+                        x64 = agg(cpu64)
+                        e_card = (agg(card_nodes[:n_cpu]).cpu().double() - x64).abs().max().item()
+                        e_cpu = (agg(cpu32).double() - x64).abs().max().item()
+                        f64[aggr] = {"card_vs_f64": e_card, "cpu_f32_vs_f64": e_cpu}
+                        ok &= e_card <= DENSE_F64_RATIO * e_cpu + DENSE_F64_ATOL
+                    row["card_vs_cpu_f64"] = f64
+                    row["dense_forward_ms"] = time_ms(
+                        torch, lambda: nets.gnn_dense_nodes(c_, d_gnn, d_node, d_adj), reps=5,
+                        warmup=1)
+                if not concat:
+                    # the kernel trunk on the same weights and graphs
+                    ck = dataclasses.replace(c_, gnn_impl="transposed")
+                    launches0 = (gnn_trunk.gnn_trunk_forward.launches,
+                                 gnn_trunk.gnn_trunk_backward.launches)
+                    vs_kernel = {}
+                    with torch.no_grad():
+                        for aggr in DENSE_AGGRS:
+                            dk = nets.dense_aggregate(card_nodes, aggr, d_aid)
+                            kk = nets.gnn_transposed_apply(ck, d_gnn, d_node, d_adj, d_aid, aggr)
+                            vs_kernel[aggr] = (dk - kk).abs().max().item()
+                            ok &= torch.allclose(dk, kk, **NET_TOL)
+                        row["kernel_forward_ms"] = time_ms(
+                            torch, lambda: nets.gnn_transposed_apply(ck, d_gnn, d_node, d_adj,
+                                                                     d_aid, "node"),
+                            reps=5, warmup=1)
+                    row["dense_vs_kernel_forward_max_abs_err"] = vs_kernel
+                    if with_grads and not relu:
+                        params_ = list(d_gnn.parameters())
+                        cots = torch.randn((len(DENSE_AGGRS), B_, c_.gnn_out_dim),
+                                           generator=g_, device=dev)
+
+                        def loss_of(apply):
+                            return sum((apply(a) * cots[i]).sum()
+                                       for i, a in enumerate(DENSE_AGGRS))
+
+                        nodes_g = nets.gnn_dense_nodes(c_, d_gnn, d_node, d_adj)
+                        gd = torch.autograd.grad(loss_of(
+                            lambda a: nets.dense_aggregate(nodes_g, a, d_aid)), params_)
+                        del nodes_g
+                        gk = torch.autograd.grad(loss_of(
+                            lambda a: nets.gnn_transposed_apply(ck, d_gnn, d_node, d_adj, d_aid,
+                                                                a)), params_)
+                        # the float64 evaluation, for leaves whose float32
+                        # kernel gradient misses the bar against it (a key
+                        # bias's gradient is zero but for rounding: the
+                        # softmax over the sources takes its shift away)
+                        g64 = copy.deepcopy(d_gnn).double()
+                        nodes64 = nets.gnn_dense_nodes(c_, g64, d_node.double(), d_adj.double())
+                        cots = cots.double()
+                        gx = torch.autograd.grad(loss_of(
+                            lambda a: nets.dense_aggregate(nodes64, a, d_aid)),
+                            list(g64.parameters()))
+                        del nodes64, g64
+                        # the kernels' plain version (float32 torch on the
+                        # card), the same trunk output aggregated four ways
+                        src_p = nets._gnn_src_T(d_gnn, d_node)
+                        out_p = gnn_trunk.gnn_trunk_forward_plain(
+                            *nets._trunk_dims(c_, E_, src_p.shape[0] // E_),
+                            nets._flatten_gnn_params(d_gnn, c_.embed_layer_n, c_.gnn_layer_n),
+                            src_p, nets._adj_T(d_adj))
+                        gp = torch.autograd.grad(loss_of(lambda a: nets._gnn_aggregate(
+                            out_p, a, d_aid, E_, c_.gnn_hidden_size).double()), params_)
+                        del src_p, out_p
+                        leaves = compare_leaves(gd, gk, gx)
+                        names_ = [n for n, _ in d_gnn.named_parameters()]
+                        row["dense_vs_kernel_grad_worst_ratio_to_bar"] = max(
+                            r["max_abs_err"] / r["bar"] for r in leaves)
+                        row["grad_leaves_past_the_bar"] = {
+                            n: {"max_abs_err": r["max_abs_err"], "bar": r["bar"],
+                                "dense_vs_f64": r["kernel_vs_f64"],
+                                "kernel_vs_f64": r["plain_vs_f64"],
+                                "plain_vs_f64": (p_.double() - x_).abs().max().item()}
+                            for n, r, p_, x_ in zip(names_, leaves, gp, gx)
+                            if r["max_abs_err"] > r["bar"]}
+                        # a key bias's gradient is rounding around zero:
+                        # where the two float32 routes differ past the bar
+                        # with the kernel inside it, the dense one must lie
+                        # within the bar of the float64 evaluation too
+                        ok &= all(r["ok"] or r["kernel_vs_f64"] <= r["bar"] for r in leaves)
+                    launched = (gnn_trunk.gnn_trunk_forward.launches - launches0[0],
+                                gnn_trunk.gnn_trunk_backward.launches - launches0[1])
+                    row["kernel_launches"] = {"forward": launched[0], "backward": launched[1]}
+                    dense_kernel_launches[0] += launched[0]
+                    dense_kernel_launches[1] += launched[1]
+                    if launched[0] < len(DENSE_AGGRS):
+                        raise AssertionError(f"dense_card: the kernel side launched row 1 "
+                                             f"{launched[0]} times")
+                row["ok"] = bool(ok)
+                dense_rows.append(row)
+                del card_nodes, cpu32, cpu64
+        del d_node, d_adj, d_aid
+        torch.cuda.empty_cache()
+    emit({"phase": "dense_card", "rows": dense_rows,
+          "f64_bar": f"card <= {DENSE_F64_RATIO} x cpu_f32 + {DENSE_F64_ATOL}",
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not all(r["ok"] for r in dense_rows):
+        raise AssertionError(f"dense_card: {[(r['E'], r['heads'], r['act']) for r in dense_rows if not r['ok']]}")
+
+    # ---------------------------------------------------------------- dense_train, dense_eval
+    # the flagship with --gnn_impl dense in float32: two episodes, no trunk
+    # kernel launched; on one buffer the first-epoch gradients of the dense
+    # route against the kernel route from the same weights, on the card
+    dense_specs = {"dense": (dev, "float32", {"gnn_impl": "dense"}),
+                   "kernel": (dev, "float32", {"gnn_impl": "transposed"})}
+    dense_out, dense_ev = train_and_eval(
+        "dense", common + flagship_n + ["--gnn_impl", "dense"], TRAIN_ENVS, DENSE_CMP_ENVS,
+        ["--num_agents", str(ep.num_agents)], False, case="flagship --gnn_impl dense",
+        kernel_route=False, compare_key="dense_vs_kernel",
+        compare=lambda env_, envs_, **kw: update_card_vs_cpu(env_, envs_, specs=dense_specs,
+                                                             **kw))
+
+    # ---------------------------------------------------------------- concat_train, concat_eval
+    # the flagship with --gnn_concat_heads at the CLI's default bfloat16: two
+    # episodes through the dense GNN; one update's gradients card against
+    # CPU at the bfloat16 bar
+    concat_argv = [a for a in common if a not in ("--compute_dtype", "float32")] + flagship_n + [
+        "--gnn_concat_heads"]
+    if build_model_config(parse_all(concat_argv)).compute_dtype != "bfloat16":
+        raise AssertionError("the concat-heads command line does not compute in bfloat16")
+    concat_out, concat_ev = train_and_eval(
+        "concat", concat_argv, TRAIN_ENVS, BF16_CMP_ENVS, ["--num_agents", str(ep.num_agents)],
+        False, case="flagship --gnn_concat_heads, bfloat16", kernel_route=False,
+        compare=lambda env_, envs_, **kw: bf16_update_vs_cpu(
+            env_, envs_, cfg_kw={"gnn_concat_heads": True}, **kw))
+
+    # ---------------------------------------------------------------- aggr_train, aggr_eval
+    # BASELINE config 2 (E = 13) with the actor's global max pool, float32:
+    # one episode; one update card against CPU, both on the dense GNN
+    aggr_kw = {"actor_graph_aggr": "global", "global_aggr_type": "max"}
+    aggr_argv = common + env_argv(OBST_ENV) + env_argv(aggr_kw) + [
+        "--dynamics_type", "air_taxi", "--n_rollout_threads", str(TRAIN_ENVS),
+        "--num_env_steps", str(STEPS * TRAIN_ENVS)]
+    aggr_out, aggr_ev = train_and_eval(
+        "aggr", aggr_argv, TRAIN_ENVS, DENSE_CMP_ENVS,
+        env_argv({k: v for k, v in OBST_ENV.items() if k != "world_size"}), False,
+        case="config 2 --actor_graph_aggr global --global_aggr_type max", episodes=1,
+        kernel_route=False,
+        compare=lambda env_, envs_, **kw: update_card_vs_cpu(env_, envs_, cfg_kw=aggr_kw, **kw))
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -2706,6 +2935,15 @@ def main() -> int:
         "safety_eval_launches": {"july hj": hj_ev[0], "config 4 exp_cbf": c4_ev[0]},
         "a12_train_launches": a12_out["trunk_launches"]["forward"],
         "a12_eval_launches": a12_ev[0],
+        # the dense GNN's runs launch no trunk kernel (dense_card's launches
+        # are the comparison's, on no path)
+        "dense_route_train_launches": {
+            "dense": dense_out["trunk_launches"]["forward"],
+            "concat": concat_out["trunk_launches"]["forward"],
+            "aggr": aggr_out["trunk_launches"]["forward"]},
+        "dense_route_eval_launches": {"dense": dense_ev[0], "concat": concat_ev[0],
+                                      "aggr": aggr_ev[0]},
+        "dense_card_comparison_launches": dense_kernel_launches[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
@@ -2728,6 +2966,11 @@ def main() -> int:
         "safety_train_launches": {"july hj": hj_out["trunk_launches"]["backward"],
                                   "config 4 exp_cbf": c4_out["trunk_launches"]["backward"]},
         "a12_train_launches": a12_out["trunk_launches"]["backward"],
+        "dense_route_train_launches": {
+            "dense": dense_out["trunk_launches"]["backward"],
+            "concat": concat_out["trunk_launches"]["backward"],
+            "aggr": aggr_out["trunk_launches"]["backward"]},
+        "dense_card_comparison_launches": dense_kernel_launches[1],
         "max_abs_err": bwd_max_err,
         "ms_by_shape": {f"E{r['E']}_Ds{r['Ds']}_B{r['B']}_{'relu' if r['acts'][1] else 'tanh'}":
                         r["ms"] for r in walls_trunk if r["row"] == 2},

@@ -51,7 +51,13 @@ weights and graphs of more entities than the trunk kernels take are
 refused, naming the ROADMAP item that brings them; seeds are integers
 drawn from ``--seed``, not JAX keys.  ``--compute_dtype`` defaults to
 bfloat16, as the JAX package's does: the MLP tails compute in bfloat16, the
-GNN trunk in float32 (``models/nets.py``).
+GNN trunk in float32 on the kernel trunk and in bfloat16 on the dense
+route (``models/nets.py``).  ``--gnn_impl dense``, ``--gnn_concat_heads``
+and ``--actor_graph_aggr global`` train both networks through the dense
+per-graph GNN modules, plain torch on the card (``models/config.py``);
+``config.json`` records them, and the eval CLI rebuilds the same route
+from it.  ``--critic_graph_aggr node`` is refused with a ``ValueError``
+before the run writes anything (``models/config.py``).
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ def build(args, device=None):
     env_params = build_env_params(args)
     if env_params.num_entities > MAX_ENTITIES:
         raise not_ported(f"graphs of more than {MAX_ENTITIES} entities (agents, landmarks, "
-                         f"obstacles and walls: {env_params.num_entities})", "A6")
+                         f"obstacles and walls: {env_params.num_entities})", "A6.3")
     cfg = build_model_config(args)
     dims = PolicyDims(
         obs_dim=env_params.obs_dim,

@@ -18,13 +18,20 @@ are taken as the JAX package takes them: ``--fair_rew`` and
 ``--graph_feat_type`` (the env reads none of them), ``--weight_decay`` (the
 JAX package's Adam takes none), ``--safety_ttr_fn``,
 ``--terminate_on_violation`` and ``--safety_penalty`` (read by nothing
-there either), and ``--gnn_impl`` transposed or pallas_fused (the port's
-one trunk formulation, transposed, is the function both compute).
-``--compute_dtype`` defaults to bfloat16, as there, and takes the JAX
-package's ``pallas_fused`` semantics: the trunk in float32, the MLP tails
-in bfloat16 (``models/nets.py``).  Trunk widths, embed depths and conv
-depths the kernels are not built for are refused (ROADMAP A6), and so are
-graphs of more entities (``cli/train.py build``).
+there either).  ``--gnn_impl`` auto, transposed and pallas_fused all
+name the port's kernel trunk (the transposed formulation both compute);
+``--gnn_impl dense``, ``--gnn_concat_heads`` and ``--actor_graph_aggr
+global`` route both networks to the dense per-graph modules, as the JAX
+package's policy routes them (``models/config.py``).  ``--critic_graph_aggr
+node`` is refused with a ``ValueError``: the critic would get N agent ids
+a row, on which the JAX package's critic stops at its first collect.
+``--compute_dtype`` defaults to bfloat16, as there: on the kernel trunk it
+takes the JAX package's ``pallas_fused`` semantics (the trunk in float32,
+the MLP tails in bfloat16), on the dense route the trunk computes in
+bfloat16 too (``models/nets.py``).  The packed edge layout
+(``--gnn_edge_packed``, ROADMAP A6.2) is refused, and so are trunk widths,
+embed depths and conv depths the kernels are not built for, on either
+route, and graphs of more entities (``cli/train.py build``; A6.3).
 """
 from __future__ import annotations
 
@@ -343,27 +350,23 @@ def build_env_params(args):
 def build_model_config(args):
     """argparse.Namespace -> the port's ``ModelConfig`` (the JAX package's
     ``build_model_config``, :332).  Raises ``NotImplementedError`` for the
-    GNN settings that need the dense per-graph formulation and for trunk
-    shapes the kernels are not built for (``ModelConfig`` itself takes
-    them: the CPU's plain trunk runs them)."""
+    packed edge layout and for trunk shapes the kernels are not built for,
+    on either route (``ModelConfig`` itself takes them: the CPU's plain
+    trunk and the dense modules run them), and ``ValueError`` (from
+    ``ModelConfig``) for the critic's 'node' aggregation, which the JAX
+    package's critic cannot run."""
     from ..models.config import ModelConfig
     from ..ops.gnn_trunk import KERNEL_WIDTH, MAX_EMBED_LAYERS, MAX_GNN_LAYERS
 
-    if args.gnn_impl == "dense":
-        raise not_ported("--gnn_impl dense", "A6")
     if args.gnn_edge_packed:
-        raise not_ported("--gnn_edge_packed", "A6")
-    if args.gnn_concat_heads:
-        raise not_ported("--gnn_concat_heads", "A6")
-    if (args.actor_graph_aggr, args.critic_graph_aggr) != ("node", "global"):
-        raise not_ported("graph aggregations other than actor 'node', critic 'global'", "A6")
+        raise not_ported("--gnn_edge_packed", "A6.2")
     if {args.embed_hidden_size, args.gnn_hidden_size} != {KERNEL_WIDTH}:
         raise not_ported(f"trunk widths other than {KERNEL_WIDTH} (--embed_hidden_size, "
-                         "--gnn_hidden_size)", "A6")
+                         "--gnn_hidden_size)", "A6.3")
     if args.embed_layer_N > MAX_EMBED_LAYERS or args.gnn_layer_N > MAX_GNN_LAYERS:
         raise not_ported(f"more than {MAX_EMBED_LAYERS} embed layers or "
                          f"{MAX_GNN_LAYERS} extra conv layers (--embed_layer_N, "
-                         "--gnn_layer_N)", "A6")
+                         "--gnn_layer_N)", "A6.3")
     return ModelConfig(
         hidden_size=args.hidden_size,
         layer_N=args.layer_N,
@@ -382,9 +385,13 @@ def build_model_config(args):
         embed_layer_n=args.embed_layer_N,
         gnn_hidden_size=args.gnn_hidden_size,
         gnn_num_heads=args.gnn_num_heads,
+        gnn_concat_heads=args.gnn_concat_heads,
         gnn_layer_n=args.gnn_layer_N,
+        actor_graph_aggr=args.actor_graph_aggr,
+        critic_graph_aggr=args.critic_graph_aggr,
         global_aggr_type=args.global_aggr_type,
         use_cent_obs=args.use_cent_obs,
         max_edge_dist=args.max_edge_dist,
         compute_dtype=args.compute_dtype,
+        gnn_impl=args.gnn_impl,
     )

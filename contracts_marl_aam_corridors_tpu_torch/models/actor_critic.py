@@ -30,12 +30,14 @@ Tensor = torch.Tensor
 
 
 class GRActor(nn.Module):
-    """GNN (ego-node gather) ++ obs -> MLP -> GRU -> categorical logits."""
+    """GNN (ego-node gather, or with ``actor_graph_aggr='global'`` the
+    graph's pool, which ignores ``agent_id``) ++ obs -> MLP -> GRU ->
+    categorical logits."""
 
     def __init__(self, cfg: ModelConfig, obs_dim: int, node_feat_dim: int, num_actions: int):
         super().__init__()
         self.cfg = cfg
-        self.gnn_base = GNNBase(cfg, node_feat_dim, "node")
+        self.gnn_base = GNNBase(cfg, node_feat_dim, cfg.actor_graph_aggr)
         self.base = MLPBase(cfg, obs_dim + cfg.gnn_out_dim)
         if cfg.use_recurrent_policy:
             self.rnn = RNNLayer(cfg, cfg.hidden_size)
@@ -74,7 +76,7 @@ class GRCritic(nn.Module):
     def __init__(self, cfg: ModelConfig, cent_obs_dim: int, node_feat_dim: int):
         super().__init__()
         self.cfg = cfg
-        self.gnn_base = GNNBase(cfg, node_feat_dim, "global")
+        self.gnn_base = GNNBase(cfg, node_feat_dim, cfg.critic_graph_aggr)
         in_dim = cfg.gnn_out_dim + (cent_obs_dim if cfg.use_cent_obs else 0)
         self.base = MLPBase(cfg, in_dim)
         if cfg.use_recurrent_policy:

@@ -7,22 +7,35 @@ Module and parameter names follow the JAX package's flax tree
 (``kernel`` -> ``weight`` transposed, ``scale`` -> ``weight``,
 ``embedding`` -> ``weight``) and transposing the GRU weights.
 
-The GNN has one formulation here, the transposed trunk of
-``gnn_transposed_apply`` (nets.py:527): rows are entity x feature, the batch
-is the minor axis, and the whole trunk is one call of
-``ops.gnn_trunk.gnn_trunk_forward`` (the CUDA kernel on the card, the plain
-version on the CPU); under grad it goes through ``GNNTrunk``, whose
-backward is the ``gnn_trunk_bwd`` kernel on the card.
-``gnn_transposed_apply_dual`` runs the actor's and the critic's trunks in
-one call of the dual kernels; the policy does not route it.  The JAX package's
-dense per-graph ``EmbedConv`` /
-``TransformerConv`` modules compute the same function and are not ported.
+The GNN has two formulations here, routed by ``ModelConfig.kernel_trunk``
+as the JAX package's policy routes them (policy.py:237-247):
+
+* the transposed trunk of ``gnn_transposed_apply`` (nets.py:527): rows
+  are entity x feature, the batch is the minor axis, and the whole trunk
+  is one call of ``ops.gnn_trunk.gnn_trunk_forward`` (the CUDA kernel on
+  the card, the plain version on the CPU); under grad it goes through
+  ``GNNTrunk``, whose backward is the ``gnn_trunk_bwd`` kernel on the
+  card.  ``gnn_transposed_apply_dual`` runs the actor's and the critic's
+  trunks in one call of the dual kernels; the policy does not route it;
+* the dense per-graph ``EmbedConv`` / ``TransformerConv`` / ``GNNBase``
+  forward (nets.py:143-402, the dense edge layout), batched over a leading
+  graph axis instead of ``nn.vmap``: ``gnn_dense_apply``.  It is plain
+  torch on the card and the CPU alike, as the JAX package's flax modules
+  are plain XLA, and it alone serves concatenated heads (``lin_skip`` and
+  the extra conv layers H*C wide), the actor's global pool and
+  ``gnn_impl='dense'``.  Its bfloat16 rounds at the flax modules' sites
+  (the Dense and LayerNorm rules below, the message sum, the q/k/v
+  product and the masked softmax), with the reductions of bfloat16
+  (the head mean, the pools, the message and attention sums) accumulated
+  in float32 and rounded once, as ``jnp.mean``/``jnp.sum`` and XLA's CPU
+  dots do.  It computes in the parameters' dtype otherwise (float64 for a
+  module cast with ``.double()``).
 
 All LayerNorms use eps=1e-5 (torch's default, as in the JAX package).
 
 Under ``compute_dtype='bfloat16'`` the tails round where the JAX package's
-flax modules round as XLA compiles them (the trunk itself stays float32, as
-under the JAX package's ``pallas_fused`` trunk):
+flax modules round as XLA compiles them (on the kernel trunk the trunk
+itself stays float32, as under the JAX package's ``pallas_fused`` trunk):
 
 * the trunk output is cast to bfloat16 before the gather or the pool (the
   critic's mean and sum accumulate in float32, as ``jnp.mean`` does);
@@ -86,6 +99,24 @@ def _layer_norm_bf16(ln: nn.LayerNorm, x: Tensor) -> Tensor:
     return ln(x.to(torch.float32)).to(BF16)
 
 
+def _linear(lin: nn.Linear, x: Tensor, bf16: bool) -> Tensor:
+    return _dense_bf16(lin, x) if bf16 else lin(x)
+
+
+def _act_norm(ln: nn.LayerNorm, x: Tensor, act, bf16: bool) -> Tensor:
+    """act -> LayerNorm; in bfloat16 the activation's float32 result feeds
+    the LayerNorm unrounded (see the module docstring)."""
+    return _layer_norm_bf16(ln, act(x.to(torch.float32))) if bf16 else ln(act(x))
+
+
+def _sum_rounded(x: Tensor, dim: int, mean: bool = False) -> Tensor:
+    """A sum (or mean) over ``dim``; of bfloat16, accumulated in float32 and
+    rounded once, as ``jnp.sum``/``jnp.mean`` do."""
+    acc = x.to(torch.promote_types(x.dtype, torch.float32))
+    red = acc.mean(dim=dim) if mean else acc.sum(dim=dim)
+    return red.to(x.dtype)
+
+
 class MLPLayer(nn.Module):
     """fc0 + layer_N hidden blocks, each Linear -> act -> LayerNorm (mlp.py:8-41)."""
 
@@ -107,10 +138,7 @@ class MLPLayer(nn.Module):
         act = torch.relu if self.cfg.use_relu else torch.tanh
         for i in range(1 + self.cfg.layer_N):
             fc, ln = getattr(self, f"fc{i}"), getattr(self, f"ln{i}")
-            if self.cfg.bf16:
-                x = _layer_norm_bf16(ln, act(_dense_bf16(fc, x).to(torch.float32)))
-            else:
-                x = ln(act(fc(x)))
+            x = _act_norm(ln, _linear(fc, x, self.cfg.bf16), act, self.cfg.bf16)
         return x
 
 
@@ -240,12 +268,13 @@ class TransformerConvParams(nn.Module):
 
     def __init__(self, cfg: ModelConfig, in_dim: int):
         super().__init__()
-        HC, C = cfg.gnn_num_heads * cfg.gnn_hidden_size, cfg.gnn_hidden_size
+        HC = cfg.gnn_num_heads * cfg.gnn_hidden_size
         self.lin_query = nn.Linear(in_dim, HC)
         self.lin_key = nn.Linear(in_dim, HC)
         self.lin_value = nn.Linear(in_dim, HC)
         self.lin_edge = nn.Parameter(torch.empty(1, HC))
-        self.lin_skip = nn.Linear(in_dim, C)
+        # the skip is added after the heads are averaged or concatenated
+        self.lin_skip = nn.Linear(in_dim, cfg.gnn_out_dim)
 
     def init_(self, gen: torch.Generator) -> None:
         # PyG's Linear init is glorot; only fresh (untrained) weights use it
@@ -257,8 +286,9 @@ class TransformerConvParams(nn.Module):
 
 class GNNBase(nn.Module):
     """EmbedConv -> TransformerConv x (1 + gnn_layer_N) -> ego-node gather
-    ('node', actor) or global pool ('global', critic), gnn_new.py:148-301,
-    420-510, run as the transposed trunk over a batch of graphs."""
+    ('node') or global pool ('global'), gnn_new.py:148-301, 420-510, over a
+    batch of graphs: the transposed kernel trunk where
+    ``cfg.kernel_trunk``, else the dense modules."""
 
     def __init__(self, cfg: ModelConfig, node_feat_dim: int, graph_aggr: str):
         super().__init__()
@@ -267,7 +297,7 @@ class GNNBase(nn.Module):
         self.embed_layer = EmbedConvParams(cfg, node_feat_dim)
         self.gnn1 = TransformerConvParams(cfg, cfg.embed_hidden_size)
         for i in range(cfg.gnn_layer_n):
-            setattr(self, f"gnn2_{i}", TransformerConvParams(cfg, cfg.gnn_hidden_size))
+            setattr(self, f"gnn2_{i}", TransformerConvParams(cfg, cfg.gnn_out_dim))
         self._kernel_key = None
         self._kernel_params = None
 
@@ -301,7 +331,11 @@ class GNNBase(nn.Module):
         """The trunk kernels' parameter buffer, built straight from these
         weights (stored (out, in), so one transpose each).  Built per call
         and differentiable where grad is enabled, so the buffer's gradient
-        reaches every weight."""
+        reaches every weight.  The kernels average the heads: concatenated
+        heads have no buffer."""
+        if self.cfg.gnn_concat_heads:
+            raise ValueError("the trunk kernels average the heads: a GNNBase with "
+                             "gnn_concat_heads runs only the dense modules")
         ec = self.embed_layer
         parts = [ec.lin1.weight.T, ec.lin1.bias, ec.lin1_edge, ec.ln1.weight, ec.ln1.bias]
         for i in range(self.cfg.embed_layer_n):
@@ -329,21 +363,139 @@ class GNNBase(nn.Module):
 
     def forward(self, node_obs: Tensor, adj: Tensor, agent_id: Tensor | None) -> Tensor:
         aggr = "node" if self.graph_aggr == "node" else self.cfg.global_aggr_type
-        return gnn_transposed_apply(self.cfg, self, node_obs, adj, agent_id, aggr)
+        if self.cfg.kernel_trunk:
+            return gnn_transposed_apply(self.cfg, self, node_obs, adj, agent_id, aggr)
+        return gnn_dense_apply(self.cfg, self, node_obs, adj, agent_id, aggr)
+
+
+# ---------------------------------------------------------------- dense route
+def adjacency_mask(adj: Tensor, max_edge_dist: float) -> tuple[Tensor, Tensor]:
+    """Edge mask and weights of a distance adjacency (nets.py:143-151;
+    reference ``process_adj``, gnn_new.py:328-358): an edge s -> t where
+    ``0 < adj[s, t] < max_edge_dist``, its attribute the distance."""
+    mask = (adj > 0) & (adj < max_edge_dist)
+    return mask, adj * mask
+
+
+def embed_conv_dense(cfg: ModelConfig, ec: EmbedConvParams, node_obs: Tensor,
+                     edge_mask: Tensor, edge_attr: Tensor) -> Tensor:
+    """The dense ``EmbedConv`` (nets.py:198-282, the dense layout) on (B, E,
+    F) nodes: the message s -> t is the MLP of [features_s, Embed(type_s),
+    d_st], its first layer split into ``lin1`` on the node part and
+    ``lin1_edge`` (no bias) on the distance, summed before the activation;
+    each target sums its in-messages.  No self loop and no skip, so an
+    isolated node comes out zero.  Returns (B, E, embed_hidden)."""
+    act = torch.relu if cfg.embed_use_relu else torch.tanh
+    bf16 = cfg.bf16
+    h_src = _linear(ec.lin1, _embed_src(ec, node_obs), bf16)
+    # msg[b, s, t] = h_src[b, s] + d[b, s, t] * w_edge
+    msg = h_src[:, :, None, :] + edge_attr[..., None] * ec.lin1_edge[0].to(h_src.dtype)
+    msg = _act_norm(ec.ln1, msg, act, bf16)
+    for i in range(cfg.embed_layer_n):
+        msg = _act_norm(getattr(ec, f"ln{i + 2}"),
+                        _linear(getattr(ec, f"lin{i + 2}"), msg, bf16), act, bf16)
+    # out[b, t] = sum_s mask[b, s, t] * msg[b, s, t]
+    return _sum_rounded(msg * edge_mask[..., None].to(msg.dtype), dim=1)
+
+
+def transformer_conv_dense(cfg: ModelConfig, tc: TransformerConvParams, x: Tensor,
+                           edge_mask: Tensor, edge_attr: Tensor) -> Tensor:
+    """The dense PyG ``TransformerConv`` (nets.py:285-352; beta=False,
+    root_weight=True, edge_dim=1) on (B, E, in) nodes.  For edge s -> t and
+    head h, with the rank-1 edge feature e_st = d_st * w_edge:
+        alpha_st = softmax_s(q_t . (k_s + e_st) / sqrt(C))
+        out_t = sum_s alpha_st (v_s + e_st)
+    the logits of non-edges filled with the dtype's lowest finite value, so
+    a target with no in-edge gets a uniform softmax that is then zeroed and
+    keeps only its skip term.  The heads are averaged, or concatenated at
+    index h*C + c; the skip ``lin_skip(x)`` is added after.  Returns (B, E,
+    C) or (B, E, H*C)."""
+    H, C = cfg.gnn_num_heads, cfg.gnn_hidden_size
+    B, E, _ = x.shape
+    bf16 = cfg.bf16
+    qkv_w = torch.cat([tc.lin_query.weight, tc.lin_key.weight, tc.lin_value.weight])
+    qkv_b = torch.cat([tc.lin_query.bias, tc.lin_key.bias, tc.lin_value.bias])
+    if bf16:
+        qkv = torch.matmul(x.to(BF16), qkv_w.to(BF16).T) + qkv_b.to(BF16)
+    else:
+        qkv = nn.functional.linear(x, qkv_w, qkv_b)
+    # head-major (B, H, E, C)
+    qh, kh, vh = (t.reshape(B, E, H, C).transpose(1, 2) for t in qkv.split(H * C, dim=-1))
+    w = tc.lin_edge.reshape(H, C).to(qh.dtype)
+    d_ts = edge_attr.transpose(1, 2).to(qh.dtype)  # (B, T, S)
+    qw = _sum_rounded(qh * w[:, None, :], dim=-1)  # (B, H, T)
+    scale = torch.tensor(float(C), dtype=qh.dtype).sqrt().item()
+    logits = (qh @ kh.transpose(-1, -2) + qw[..., None] * d_ts[:, None]) / scale
+    mask_ts = edge_mask.transpose(1, 2)
+    logits = logits.masked_fill(~mask_ts[:, None], torch.finfo(logits.dtype).min)
+    alpha = torch.softmax(logits, dim=-1)
+    has_edge = mask_ts.any(dim=-1)  # (B, T)
+    alpha = alpha.masked_fill(~has_edge[:, None, :, None], 0.0)
+    out = alpha @ vh + _sum_rounded(alpha * d_ts[:, None], dim=-1)[..., None] * w[:, None, :]
+    if cfg.gnn_concat_heads:
+        out = out.transpose(1, 2).reshape(B, E, H * C)
+    else:
+        out = _sum_rounded(out, dim=1, mean=True)
+    return out + _linear(tc.lin_skip, x, bf16)
+
+
+def gnn_dense_nodes(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: Tensor) -> Tensor:
+    """The per-node output of the dense GNNBase (nets.py:355-386): (B, E, F)
+    nodes and (B, E, E) adjacency -> (B, E, gnn_out_dim), in bfloat16 under
+    ``compute_dtype='bfloat16'``, else in the parameters' dtype."""
+    act = torch.relu if cfg.gnn_use_relu else torch.tanh
+    cdt = BF16 if cfg.bf16 else gnn.embed_layer.lin1.weight.dtype
+    edge_mask, edge_attr = adjacency_mask(adj, cfg.max_edge_dist)
+    node_obs, edge_attr = node_obs.to(cdt), edge_attr.to(cdt)
+    x = embed_conv_dense(cfg, gnn.embed_layer, node_obs, edge_mask, edge_attr)
+    for name in ["gnn1"] + [f"gnn2_{i}" for i in range(cfg.gnn_layer_n)]:
+        x = act(transformer_conv_dense(cfg, getattr(gnn, name), x, edge_mask, edge_attr))
+    return x
+
+
+def dense_aggregate(x: Tensor, aggr: str, agent_id: Tensor | None) -> Tensor:
+    """(B, E, D) node outputs -> (B, D): 'node' gathers the row of
+    ``agent_id`` as an exact one-hot product (nets.py:380-389), 'mean',
+    'max' and 'add' pool the graph (nets.py:390-396; ``amax`` splits a tied
+    maximum's gradient evenly, as ``jnp.max`` does)."""
+    if aggr == "node":
+        E = x.shape[1]
+        onehot = agent_id.reshape(-1, 1).to(torch.long) == torch.arange(E, device=x.device)
+        return _sum_rounded(onehot[..., None].to(x.dtype) * x, dim=1)
+    if aggr == "mean":
+        return _sum_rounded(x, dim=1, mean=True)
+    if aggr == "max":
+        return x.amax(dim=1)
+    if aggr == "add":
+        return _sum_rounded(x, dim=1)
+    raise ValueError(f"bad aggr {aggr!r}")
+
+
+def gnn_dense_apply(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: Tensor,
+                    agent_id: Tensor | None, aggr: str) -> Tensor:
+    """GNNBase forward through the dense modules: ``aggr`` 'node' (the row of
+    ``agent_id``) or a global pool ('mean'/'max'/'add', which ignores
+    ``agent_id``).  Returns (B, gnn_out_dim)."""
+    return dense_aggregate(gnn_dense_nodes(cfg, gnn, node_obs, adj), aggr, agent_id)
+
+
+def _embed_src(ec: EmbedConvParams, node_obs: Tensor) -> Tensor:
+    """(B, E, F) node_obs -> (B, E, Ds) EmbedConv input [features,
+    Embed(type)] in the table's dtype."""
+    table = ec.entity_embed.weight
+    etype = node_obs[..., -1].to(torch.long)
+    # the embedding lookup as an exact one-hot product: its backward is a
+    # reduction, where the gather's backward scatters B*E rows into the
+    # table's few rows (on the card that scatter took most of a PPO epoch)
+    onehot = (etype[..., None] == torch.arange(table.shape[0], device=etype.device))
+    emb = (onehot[..., None].to(table.dtype) * table).sum(dim=-2)
+    return torch.cat([node_obs[..., :-1].to(table.dtype), emb], dim=-1)
 
 
 def _gnn_src_T(gnn: GNNBase, node_obs: Tensor) -> Tensor:
     """(B, E, F) node_obs -> transposed (E*Ds, B) EmbedConv input."""
     B, E, _ = node_obs.shape
-    feat = node_obs[..., :-1].to(torch.float32)
-    etype = node_obs[..., -1].to(torch.long)
-    # the embedding lookup as an exact one-hot product: its backward is a
-    # reduction, where the gather's backward scatters B*E rows into the
-    # table's few rows (on the card that scatter took most of a PPO epoch)
-    table = gnn.embed_layer.entity_embed.weight
-    onehot = (etype[..., None] == torch.arange(table.shape[0], device=etype.device))
-    emb = (onehot[..., None].to(table.dtype) * table).sum(dim=-2)
-    src = torch.cat([feat, emb], dim=-1)
+    src = _embed_src(gnn.embed_layer, node_obs)
     return src.permute(1, 2, 0).reshape(E * src.shape[-1], B).contiguous()
 
 
@@ -354,16 +506,15 @@ def _gnn_aggregate(out: Tensor, aggr: str, agent_id: Tensor | None, E: int, C: i
     a mean or sum of bfloat16 accumulates in float32 and rounds once, as
     ``jnp.mean`` and ``jnp.sum`` do."""
     stack = out.reshape(E, C, -1).to(dtype or out.dtype)
-    acc = torch.promote_types(stack.dtype, torch.float32)
     if aggr == "node":
         idx = agent_id.reshape(1, 1, -1).to(torch.long).expand(1, C, stack.shape[-1])
         return torch.gather(stack, 0, idx)[0].T
     if aggr == "mean":
-        return stack.to(acc).mean(dim=0).to(stack.dtype).T
+        return _sum_rounded(stack, 0, mean=True).T
     if aggr == "max":
         return stack.amax(dim=0).T
     if aggr == "add":
-        return stack.to(acc).sum(dim=0).to(stack.dtype).T
+        return _sum_rounded(stack, 0).T
     raise ValueError(f"bad aggr {aggr!r}")
 
 
@@ -381,7 +532,11 @@ def _trunk_params(cfg: ModelConfig, gnn: GNNBase, on_card: bool):
     differentiable buffer, whose gradient (the backward kernel's on the card)
     reaches the weights, and the entity embedding's through dsrc.  Without:
     the card's kernel takes the buffer kept across calls, the CPU's plain
-    version the flat tuple."""
+    version the flat tuple.  The trunk averages the heads, so concatenated
+    heads are refused."""
+    if cfg.gnn_concat_heads:
+        raise ValueError("the transposed trunk averages the heads: gnn_concat_heads runs "
+                         "only the dense modules (gnn_dense_apply)")
     if torch.is_grad_enabled() and gnn.embed_layer.lin1.weight.requires_grad:
         return gnn.grad_params()
     if on_card:

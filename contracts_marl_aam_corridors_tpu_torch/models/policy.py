@@ -9,13 +9,21 @@ policy object holds the configuration and the parameters travel beside it:
 ``PolicyParams`` holds the actor and critic modules, ``TrainState`` their
 optimizers.
 
-Routing: every call runs both GNN trunks through the transposed
-formulation, so on the card every trunk forward is the ``gnn_trunk_fwd``
-kernel and every trunk backward the ``gnn_trunk_bwd`` kernel.  (The JAX
-package runs ``act`` and ``get_values`` through its dense per-graph GNN; the
-two formulations compute the same function, held by the JAX package's own
-tests at rtol 2e-4 / atol 2e-5.)  Inputs of any floating type are cast to
-the parameters' float32.
+Routing, as the JAX package's ``_transposed_routable`` (policy.py:237-247;
+``ModelConfig.kernel_trunk``): where ``gnn_impl`` is not 'dense', the
+actor gathers its own node, the critic pools globally and the heads are
+averaged, every call (``get_actions``, ``evaluate_actions``, ``act`` and
+``get_values``) runs both GNN trunks through the transposed formulation,
+so on the card every trunk forward is the ``gnn_trunk_fwd`` kernel and
+every trunk backward the ``gnn_trunk_bwd`` kernel.  (The JAX package runs
+``act`` and ``get_values`` through its dense per-graph GNN there; the two
+formulations compute the same function, held by the JAX package's own
+tests at rtol 2e-4 / atol 2e-5.)  Otherwise every call runs the dense
+per-graph modules (``models/nets.py gnn_dense_apply``), plain torch on the
+card as on the CPU, as the JAX package's does.  The critic pools globally
+and takes no agent ids (the JAX signature's ``share_agent_id``); the
+actor's global pool ignores its ``agent_id``.  Inputs of any floating type
+are cast to the parameters' float32.
 """
 from __future__ import annotations
 

@@ -24,7 +24,11 @@ both Adam states and the PopArt normalizer map through the port's
 ``ckpt_<N>/train_state.pt``, a ``latest.json`` whose path is relative to its
 directory and ``config.json`` (the flags of ``config.yaml``) under the
 ``model_weights_torch/`` counterpart of the source.  ``--src``, ``--ckpt``
-and ``--argv`` convert another checkpoint with a recipe given in full.
+and ``--argv`` convert another checkpoint with a recipe given in full; the
+recipe's architecture flags (``--gnn_concat_heads``, ``--actor_graph_aggr
+global``, ``--gnn_impl dense``) build both the JAX template and the port's
+modules, whose state dicts then load the flax tree strict (concatenated
+heads make ``lin_skip`` and the extra conv layers' inputs H*C wide).
 
 ``--jax_eval`` also runs the JAX package's batched protocol on each (4 x
 ``Runner.eval_episode`` of 256 envs, ``PRNGKey(100 + s)``, as

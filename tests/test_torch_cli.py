@@ -138,6 +138,10 @@ PORTED = {
     # the runner options
     "curriculum": ["--use_curriculum", "True"],
     "centralized_v_off": ["--use_centralized_V"],
+    # the dense per-graph GNN's routes
+    "dense_gnn": ["--gnn_impl", "dense"],
+    "concat_heads": ["--gnn_concat_heads"],
+    "actor_aggr": ["--actor_graph_aggr", "global", "--global_aggr_type", "max"],
 }
 
 
@@ -163,7 +167,9 @@ def test_ported_env_params_match_jax(name):
         "bfloat16": ("rotate_tube_july", 25, 5, 8), "safety_hj": ("rotate_tube_july", 25, 5, 8),
         "safety_exp_cbf": ("rotate_tube_july", 5, 22, 13),
         "safety_rvo": ("rotate_tube_july", 5, 5, 8), "curriculum": ("rotate_tube_july", 25, 5, 8),
-        "centralized_v_off": ("rotate_tube_july", 25, 5, 8)}[name]
+        "centralized_v_off": ("rotate_tube_july", 25, 5, 8),
+        "dense_gnn": ("rotate_tube_july", 25, 5, 8), "concat_heads": ("rotate_tube_july", 25, 5, 8),
+        "actor_aggr": ("rotate_tube_july", 25, 5, 8)}[name]
     tcfg, jcfg = flags.build_model_config(targs), jflags.build_model_config(jargs)
     for f in dataclasses.fields(tcfg):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
@@ -172,9 +178,21 @@ def test_ported_env_params_match_jax(name):
     assert (tenv.use_safety_filter, tenv.safety_filter_type) == {
         "safety_hj": (True, "hj"), "safety_exp_cbf": (True, "exp_cbf"),
         "safety_rvo": (True, "rvo")}.get(name, (False, "hj"))
-    _, _, _, runner = cli_train.build(targs, "cpu")
+    dense = name in ("dense_gnn", "concat_heads", "actor_aggr")
+    assert tcfg.kernel_trunk == (not dense) == jpolicy_routable(jargs)
+    _, policy, _, runner = cli_train.build(targs, "cpu")
     assert runner.use_centralized_v == (name != "centralized_v_off") == targs.use_centralized_V
     assert (runner.hj_data is not None) == (name == "safety_hj")
+    assert policy.cfg.gnn_out_dim == (48 if name == "concat_heads" else 16)
+
+
+def jpolicy_routable(jargs) -> bool:
+    """The JAX policy's routing of the flags (its trunk kernels or its dense
+    per-graph GNN), read from a built policy without compiling anything."""
+    from contracts_marl_aam_corridors_tpu.models import GRMAPPOPolicy as JPolicy
+    from contracts_marl_aam_corridors_tpu.models import PolicyDims as JDims
+
+    return JPolicy(jflags.build_model_config(jargs), JDims(19, 57, 5, 8, 25))._transposed_routable()
 
 
 def test_compute_dtype_defaults_as_jax():
@@ -208,20 +226,18 @@ REFUSED = {
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "dense_gnn": (["--gnn_impl", "dense"], "A6"),
-    "edge_packed": (["--gnn_edge_packed", "True"], "A6"),
-    "concat_heads": (["--gnn_concat_heads"], "A6"),
-    "actor_aggr": (["--actor_graph_aggr", "global"], "A6"),
+    "edge_packed": (["--gnn_edge_packed", "True"], "A6.2"),
     "fuse_trunks": (["--fuse_gnn_trunks", "True"], "A11"),
     # a directory of the reference's actor.pt weights (made by the test)
     "warm_start_actor_pt": (["--warm_start_dir", "{actor_pt}"], "A11"),
     "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], "A9"),
     # trunk shapes the kernels are not built for (the CPU's plain trunk
-    # would run them, the card's first launch would not)
-    "trunk_width": (["--gnn_hidden_size", "32"], "A6"),
-    "trunk_depth": (["--gnn_layer_N", "8"], "A6"),
+    # would run them, the card's first launch would not), on either route
+    "trunk_width": (["--gnn_hidden_size", "32"], "A6.3"),
+    "trunk_depth": (["--gnn_layer_N", "8"], "A6.3"),
+    "trunk_width_dense": (["--gnn_hidden_size", "32", "--gnn_impl", "dense"], "A6.3"),
     # more graph entities than the kernels take (E = 40 > 32)
-    "entities": (["--num_agents", "20", "--num_landmarks", "20"], "A6"),
+    "entities": (["--num_agents", "20", "--num_landmarks", "20"], "A6.3"),
 }
 
 
@@ -518,6 +534,69 @@ def test_centralized_v_off_with_cent_obs_is_refused(tmp_path):
         jnp.zeros((n, jpolicy.cfg.recurrent_n, jpolicy.cfg.hidden_size)), jnp.ones((n, 1)))
     with pytest.raises(flax.errors.ScopeParamShapeError, match=r"\(35,\).*\(73,\)"):
         jax.eval_shape(values, ts.params)
+
+
+def test_critic_node_aggregation_is_refused(tmp_path):
+    """``--critic_graph_aggr node``: the runner gives the critic every
+    agent's id (the JAX runner's ``share_agent_id``, (B*N, N) rows), which
+    the 'node' gather cannot take.  The JAX package's first collect stops on
+    it with a ``TypeError`` (its train CLI after writing the run's
+    metrics.jsonl); the port refuses the run with a ``ValueError`` that
+    names the reason, before it writes anything."""
+    argv = ["--critic_graph_aggr", "node", "--num_agents", "3"]
+    with pytest.raises(ValueError, match=r"critic_graph_aggr='node'.*N agent ids a row"):
+        cli_train.main(FLOAT32 + argv + ["--cuda", "--run_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir()), "a refused run writes nothing"
+    # the JAX side: the built policy's get_actions, called as its runner's
+    # collect calls it (traced for shapes only, jax.eval_shape)
+    jargs = jflags.parse_all(FLOAT32 + argv)
+    jenv_params, jpolicy, jtrainer, _ = jcli_train.build(jargs)
+    assert jpolicy.cfg.critic_graph_aggr == "node" and not jpolicy._transposed_routable()
+    ts = jax.eval_shape(jtrainer.init_state, jax.random.PRNGKey(0))
+    n, E, F = 3, jenv_params.num_entities, jenv_params.node_feat_dim
+    h = jnp.zeros((n, jpolicy.cfg.recurrent_n, jpolicy.cfg.hidden_size))
+    aid = jnp.arange(n, dtype=jnp.int32).reshape(n, 1)
+    share_aid = jnp.broadcast_to(aid.reshape(1, n), (n, n))
+    collect = lambda p: jpolicy.get_actions(
+        p, jax.random.PRNGKey(1), jnp.zeros((n, 57)), jnp.zeros((n, 19)), jnp.zeros((n, E, F)),
+        jnp.ones((n, E, E)), aid, share_aid, h, h, jnp.ones((n, 1)))
+    with pytest.raises(TypeError, match=r"cannot reshape array of shape \(3,\)"):
+        jax.eval_shape(collect, ts.params)
+
+
+def test_cli_trains_restores_and_evaluates_concat_heads_on_cpu(tmp_path):
+    """``--gnn_concat_heads`` at the CLI's default bfloat16: two tiny
+    episodes through the dense GNN (lin_skip and the extra conv layers 48
+    wide), the checkpoint restored bit for bit, then the eval CLI, which
+    rebuilds the same route from the run's config.json."""
+    argv = SMALL[len(FLOAT32):] + ["--gnn_concat_heads"]
+    calls = []
+    real = gnn_trunk.gnn_trunk_forward
+    gnn_trunk.gnn_trunk_forward = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        run_dir, ts = cli_train.main(argv + ["--num_env_steps", str(2 * 8 * 5),
+                                             "--run_dir", str(tmp_path / "train")])
+        models = os.path.join(run_dir, "models")
+        assert load_run_config(models)["gnn_concat_heads"] is True
+        _, policy, trainer, _ = cli_train.build(flags.parse_all(argv), "cpu")
+        assert policy.cfg.compute_dtype == "bfloat16" and not policy.cfg.kernel_trunk
+        restored, episode = restore_checkpoint(models, trainer.init_state(99))
+        want, got = _state_tensors(ts), _state_tensors(restored)
+        assert episode == 1 and set(got) == set(want)
+        for k, v in want.items():
+            assert (torch.equal(got[k], v) and got[k].dtype == v.dtype
+                    if isinstance(v, torch.Tensor) else got[k] == v), k
+        gnn = ts.params.critic.gnn_base
+        assert tuple(gnn.gnn1.lin_skip.weight.shape) == (48, 16)
+        assert tuple(gnn.gnn2_0.lin_query.weight.shape) == (48, 48)
+        assert ts.params.actor.base.feature_norm.weight.shape[0] == 19 + 48
+        rows = cli_eval.main(["--model_dir", models, "--cuda", "--render_episodes", "2",
+                              "--num_agents", "3", "--episode_length", "5",
+                              "--run_dir", str(tmp_path / "eval")])
+    finally:
+        gnn_trunk.gnn_trunk_forward = real
+    assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
+    assert not calls, "the dense route never calls the trunk"
 
 
 # the shipped july checkpoint in the port's layout and its JAX original
