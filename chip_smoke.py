@@ -38,7 +38,12 @@ per-graph GNN (plain torch) is held on the card against the CPU's float64
 and, at averaged heads, against the kernel trunk, and the flagship with
 ``--gnn_impl dense`` and with ``--gnn_concat_heads`` (bfloat16) and
 BASELINE config 2 with the actor's global max pool train and evaluate
-through the CLIs without launching a trunk kernel.
+through the CLIs without launching a trunk kernel.  The dense route's packed
+edge layout (``--gnn_edge_packed``) is held on the card against the CPU's
+float64 and bfloat16 and against the dense layout, its fused trunks
+(``--fuse_gnn_trunks``) against the unfused update with both updates
+profiled, the kernel route with both flags launches rows 1 and 2 as without
+them, and the flagship trains and evaluates packed and fused in bfloat16.
 Prints one JSON line per phase (device, build, kernel, backward, dual, v2,
 rollout, eval, train, cli, checkpoint (one for each evaluation), eval_cli,
 gated_train, env_card, rk45_card, v4oct_train, v4oct_eval, walls_env_card,
@@ -47,7 +52,8 @@ formations_env_card, formations_train and formations_eval (one for each
 formation), bf16_train, bf16_eval, safety_env_card, safety_train and
 safety_eval (one for each filter), safety_unfiltered_beside, a12_train,
 a12_eval, dense_card, dense_train, dense_eval, concat_train, concat_eval,
-aggr_train, aggr_eval, kernels), then
+aggr_train, aggr_eval, packed_card, fused_kernel_route_train,
+fused_kernel_route_eval, fused_card, packed_train, packed_eval, kernels), then
 the card's name and power limit as
 ``nvidia-smi`` gives them, then ``{"ok": true, "device": {...}}`` as the
 last line.  Any failed check raises,
@@ -267,6 +273,19 @@ DENSE_CPU_GRAPHS = 8_192
 DENSE_F64_RATIO, DENSE_F64_ATOL = 2.0, 1e-6
 DENSE_AGGRS = ("node", "mean", "max", "add")
 DENSE_CMP_ENVS = 16
+# The dense route's layout flags.  packed_card: the packed edge layout
+# (--gnn_edge_packed) at (E, node features, graphs): the flagship update's
+# 76,800 graphs of E = 6 and config 2's E = 13 at 3,072, tanh, on weights
+# drawn away from their init; the CPU's float32, float64 and bfloat16 on the
+# first PACKED_CPU_GRAPHS graphs; packed against the dense layout on the
+# card at the JAX package's packed-vs-dense forward bar
+# (tests/test_packed_gnn.py:46-48).  fused_card: the fused update
+# (--fuse_gnn_trunks) against the unfused one at that file's bars (:136-147).
+PACKED_CARD_SHAPES = [(6, 8, 76_800), (13, 8, 3_072)]
+PACKED_CPU_GRAPHS = 2_048
+PACKED_FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+FUSED_TOL = dict(rtol=1e-5, atol=1e-5)
+FUSED_GRAD_TOL = dict(rtol=5e-4, atol=1e-5)
 # eval_stats.csv's columns, as the JAX package's cli/eval.py writes them
 JAX_EVAL_COLUMNS = ["episode", "ep_rew", "success_frac", "time_mean", "time_stddev",
                     "dist_mean", "dist_stddev", "agent_collisions", "conformance",
@@ -1393,15 +1412,17 @@ def main() -> int:
     if changed < len(before):
         raise AssertionError(f"only {changed} of {len(before)} weight tensors changed")
 
-    def update_profile_of(runner_, ts_, carry_):
-        """Where the update's time goes: a collect of ``runner_``'s, then a
-        2-epoch update unprofiled and profiled on its buffer.  Returns the
-        profile and the carry after the collect."""
+    def update_profile_of(runner_, ts_, carry_, pbuf=None):
+        """Where the update's time goes: a collect of ``runner_``'s (unless
+        a buffer ``pbuf`` is given), then a 2-epoch update unprofiled and
+        profiled on its buffer.  Returns the profile and the carry after the
+        collect."""
         prof_epochs = 2
         prof_trainer = GRMAPPOTrainer(runner_.policy, ppo_epoch=prof_epochs,
                                       data_chunk_length=CHUNK)
         t0 = time.perf_counter()
-        carry_, pbuf, _ = runner_.collect(ts_, carry_)
+        if pbuf is None:
+            carry_, pbuf, _ = runner_.collect(ts_, carry_)
         torch.cuda.synchronize()
         collect_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1430,6 +1451,9 @@ def main() -> int:
             # the trunk kernels' launches by the profiler's kernel names
             "trunk_kernel_launches": sum(e.count for e in dev_evts
                                          if re.search(r"gnn_(trunk|forward)", e.key)),
+            # the trunks' attention softmax ops (the heads take log_softmax)
+            "softmax_ops_per_epoch": sum(e.count for e in avg
+                                         if e.key == "aten::_softmax") / prof_epochs,
             "cudaLaunchKernel_host_ms_per_epoch": sum(
                 e.self_cpu_time_total for e in avg
                 if e.key == "cudaLaunchKernel") / 1e3 / prof_epochs,
@@ -1440,11 +1464,12 @@ def main() -> int:
 
     update_profile, tcarry = update_profile_of(train_runner, tts, tcarry)
 
-    def first_epoch_grads(env_params, envs, specs, cfg_kw=None, **runner_kw):
+    def first_epoch_grads(env_params, envs, specs, cfg_kw=None, policy_kw=None, **runner_kw):
         """The first epoch's gradients of one update on each side of
-        ``specs`` ({side: (device, compute dtype[, ModelConfig fields])},
-        the first side on the card), from the same weights (tanh activations
-        everywhere, the fields of ``cfg_kw`` on every side) and one buffer (a
+        ``specs`` ({side: (device, compute dtype[, ModelConfig fields[,
+        GRMAPPOPolicy arguments]])}, the first side on the card), from the
+        same weights (tanh activations everywhere, the fields of ``cfg_kw``
+        and the arguments of ``policy_kw`` on every side) and one buffer (a
         collect of ``envs`` envs of ``env_params`` by the first side, its
         ``Runner`` given ``runner_kw``: the HJ table, the centralized V).
         Returns the sides' trainers and states, their gradients by leaf (on
@@ -1457,7 +1482,8 @@ def main() -> int:
             cfg_ = ModelConfig(max_edge_dist=env_params.cfg.coordination_range, use_relu=False,
                                embed_use_relu=False, gnn_use_relu=False, compute_dtype=dt,
                                **(cfg_kw or {}), **(side_kw[0] if side_kw else {}))
-            tr = GRMAPPOTrainer(GRMAPPOPolicy(cfg_, dims_, device=d), ppo_epoch=1,
+            pol_kw = {**(policy_kw or {}), **(side_kw[1] if len(side_kw) > 1 else {})}
+            tr = GRMAPPOTrainer(GRMAPPOPolicy(cfg_, dims_, device=d, **pol_kw), ppo_epoch=1,
                                 data_chunk_length=CHUNK)
             sides[side] = (tr, tr.init_state(SEED + 7))
         tr_c, ts_c = next(iter(sides.values()))
@@ -1481,7 +1507,8 @@ def main() -> int:
             totals[side] = total.item()
         return sides, first, totals, buf_c, buf_h
 
-    def update_card_vs_cpu(env_params, envs=CMP_ENVS, cfg_kw=None, specs=None, **runner_kw):
+    def update_card_vs_cpu(env_params, envs=CMP_ENVS, cfg_kw=None, specs=None, policy_kw=None,
+                           **runner_kw):
         """One update on the two sides of ``specs`` (by default the card's
         kernels against the CPU's plain versions; ``first_epoch_grads``'
         form), from the same buffer (a collect of ``envs`` envs of
@@ -1493,7 +1520,7 @@ def main() -> int:
         sides' train info."""
         specs = specs or {"card": (dev, "float32"), "cpu": (torch.device("cpu"), "float32")}
         sides, first, _, buf_c, buf_h = first_epoch_grads(env_params, envs, specs, cfg_kw,
-                                                          **runner_kw)
+                                                          policy_kw, **runner_kw)
         held, ref = list(sides)
         grad_err, worst_ratio = {}, 0.0
         for n, want in first[ref].items():
@@ -2293,7 +2320,9 @@ def main() -> int:
                        [0.0] + [r["wall_s"] for r in train_recs_[:-1]],
                        [r["wall_s"] for r in train_recs_])],
                    "trunk_launches": {"forward": got_launches[0], "backward": got_launches[1],
-                                      "expected": want_launches[:2]},
+                                      "expected": want_launches[:2],
+                                      "dual_forward": got_launches[2],
+                                      "dual_backward": got_launches[3], "v2": got_launches[4]},
                    "restore": {"episode": saved_, "tensors_and_values": len(held_),
                                "bit_for_bit": True},
                    "last_episode": {k: train_recs_[-1][k] for k in (
@@ -2501,10 +2530,11 @@ def main() -> int:
     # restore, an update profiled, one update's gradients card against CPU
     # at the bfloat16 bar; then the eval entry point (float32, as the JAX
     # package's)
-    def bf16_update_vs_cpu(env_params, envs, cfg_kw=None, **runner_kw):
+    def bf16_update_vs_cpu(env_params, envs, cfg_kw=None, policy_kw=None, **runner_kw):
         """One update's first-epoch gradients in bfloat16 on the card and on
         the CPU and in float32 on the CPU, from one buffer and the same
-        weights (the fields of ``cfg_kw`` on every side): each leaf's and
+        weights (the fields of ``cfg_kw`` and the policy arguments of
+        ``policy_kw`` on every side): each leaf's and
         the loss's card distance from the CPU's float32 within BF16_RATIO x
         the CPU bfloat16 distance + the atols.  Returns the worst ratio to
         the bar, the largest card distance and both bfloat16 sides'
@@ -2512,7 +2542,7 @@ def main() -> int:
         cpu_ = torch.device("cpu")
         _, first, totals, _, _ = first_epoch_grads(env_params, envs, {
             "card": (dev, "bfloat16"), "cpu": (cpu_, "bfloat16"), "cpu_f32": (cpu_, "float32")},
-            cfg_kw, **runner_kw)
+            cfg_kw, policy_kw, **runner_kw)
         worst, card_err = 0.0, {}
         rows = [("loss", totals["card"], totals["cpu"], totals["cpu_f32"], BF16_ATOL)] + [
             (n, first["card"][n], first["cpu"][n], ref,
@@ -2911,6 +2941,233 @@ def main() -> int:
         kernel_route=False,
         compare=lambda env_, envs_, **kw: update_card_vs_cpu(env_, envs_, cfg_kw=aggr_kw, **kw))
 
+    # ---------------------------------------------------------------- packed_card
+    # the packed edge layout (models/nets.py embed_conv_packed) on the card at
+    # PACKED_CARD_SHAPES, tanh: the packed EmbedConv alone and the whole dense
+    # GNN in that layout, forward and the parameter gradients of
+    # sum(out * cotangent).  Float32, on all the graphs: the forward against
+    # the dense layout at PACKED_FWD_TOL, and on the first PACKED_CPU_GRAPHS
+    # against the CPU's float64 at dense_card's bar; the gradients at
+    # dense_card's bar (compare_leaves: packed against dense at the JAX bar,
+    # or within twice the dense layout's distance from a float64 evaluation
+    # on the card, or within the JAX bar of it).  Bfloat16 on the first
+    # PACKED_CPU_GRAPHS graphs: the card's forward and gradients within the
+    # bfloat16 bar (BF16_RATIO ...) of the CPU's float32 (the CPU's bfloat16
+    # in the JAX package's place).  The packed forward's ms beside the dense layout's, float32 and
+    # bfloat16, on all the graphs.
+    def packed_part(part, c_, gnn, node, adj):
+        """The packed or dense EmbedConv alone (``part`` 'embed_conv'), or
+        the dense GNN's per-node output ('gnn'), as gnn_dense_nodes casts."""
+        if part == "gnn":
+            return nets.gnn_dense_nodes(c_, gnn, node, adj)
+        cdt = torch.bfloat16 if c_.bf16 else gnn.embed_layer.lin1.weight.dtype
+        mask, attr = nets.adjacency_mask(adj, c_.max_edge_dist)
+        embed = nets.embed_conv_packed if c_.gnn_edge_packed else nets.embed_conv_dense
+        return embed(c_, gnn.embed_layer, node.to(cdt), mask, attr.to(cdt))
+
+    def part_grads(part, c_, gnn, node, adj, cot):
+        params_ = [p for n, p in gnn.named_parameters()
+                   if part == "gnn" or n.startswith("embed_layer.")]
+        out = packed_part(part, c_, gnn, node, adj)
+        return torch.autograd.grad((out.to(cot.dtype) * cot).sum(), params_)
+
+    t_phase = time.perf_counter()
+    packed_rows = []
+    for E_, F_, B_ in PACKED_CARD_SHAPES:
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 40 + E_)
+        p_node, p_adj = random_graphs(B_, E_, cfg.max_edge_dist, g_, F=F_)
+        n_cpu = min(B_, PACKED_CPU_GRAPHS)
+        cpu_node, cpu_adj = p_node[:n_cpu].cpu(), p_adj[:n_cpu].cpu()
+        kw_ = dict(max_edge_dist=cfg.max_edge_dist, gnn_impl="dense", use_relu=False,
+                   embed_use_relu=False, gnn_use_relu=False)
+        cfgs = {(packed, dt): ModelConfig(**kw_, gnn_edge_packed=packed, compute_dtype=dt)
+                for packed in (True, False) for dt in ("float32", "bfloat16")}
+        cpu_gnn = nets.GNNBase(cfgs[(True, "float32")], F_, "node")
+        init_gen = torch.Generator().manual_seed(SEED + 12)
+        cpu_gnn.init_(init_gen)
+        with torch.no_grad():
+            for p_ in cpu_gnn.parameters():
+                p_.add_(0.1 * torch.randn(p_.shape, generator=init_gen))
+        d_gnn = copy.deepcopy(cpu_gnn).to(dev)
+        for part in ("embed_conv", "gnn"):
+            cot = torch.randn((B_, E_, 16), generator=g_, device=dev)
+            row = {"part": part, "E": E_, "node_feat_dim": F_, "graphs": B_,
+                   "cpu_graphs": n_cpu}
+            ok = True
+            with torch.no_grad():
+                # float32: packed against dense on the card, against float64
+                pk = packed_part(part, cfgs[(True, "float32")], d_gnn, p_node, p_adj)
+                dn = packed_part(part, cfgs[(False, "float32")], d_gnn, p_node, p_adj)
+                ok &= bool(torch.isfinite(pk).all())
+                row["packed_vs_dense_max_abs_err"] = (pk - dn).abs().max().item()
+                row["packed_vs_dense_worst_ratio_to_bar"] = ((pk - dn).abs() / (
+                    PACKED_FWD_TOL["atol"] + PACKED_FWD_TOL["rtol"] * dn.abs())).max().item()
+                ok &= row["packed_vs_dense_worst_ratio_to_bar"] <= 1.0
+                c32 = packed_part(part, cfgs[(True, "float32")], cpu_gnn, cpu_node, cpu_adj)
+                c64 = packed_part(part, cfgs[(True, "float32")], copy.deepcopy(cpu_gnn).double(),
+                                  cpu_node.double(), cpu_adj.double())
+                e_card = (pk[:n_cpu].cpu().double() - c64).abs().max().item()
+                e_cpu = (c32.double() - c64).abs().max().item()
+                row["card_vs_cpu_f64"] = {"card_vs_f64": e_card, "cpu_f32_vs_f64": e_cpu}
+                ok &= e_card <= DENSE_F64_RATIO * e_cpu + DENSE_F64_ATOL
+                # bfloat16 forward: the card and the CPU against the CPU's float32
+                k16 = packed_part(part, cfgs[(True, "bfloat16")], d_gnn, p_node, p_adj)
+                h16 = packed_part(part, cfgs[(True, "bfloat16")], cpu_gnn, cpu_node, cpu_adj)
+                d16_card = (k16[:n_cpu].cpu().float() - c32).abs().max().item()
+                d16_cpu = (h16.float() - c32).abs().max().item()
+                row["bf16_forward"] = {"card_vs_cpu_f32": d16_card, "cpu_bf16_vs_cpu_f32": d16_cpu,
+                                       "card_vs_cpu_bf16": (k16[:n_cpu].cpu().float()
+                                                            - h16.float()).abs().max().item()}
+                ok &= d16_card <= BF16_RATIO * d16_cpu + BF16_ATOL
+                ms = {}
+                for (packed, dt), c_ in cfgs.items():
+                    ms[f"{'packed' if packed else 'dense'}_{dt}"] = time_ms(
+                        torch, lambda c_=c_: packed_part(part, c_, d_gnn, p_node, p_adj),
+                        reps=5, warmup=1)
+                row["forward_ms"] = ms
+                del pk, dn, k16
+            # float32 gradients on all the graphs: packed, dense, float64
+            gp = part_grads(part, cfgs[(True, "float32")], d_gnn, p_node, p_adj, cot)
+            gd = part_grads(part, cfgs[(False, "float32")], d_gnn, p_node, p_adj, cot)
+            g64 = copy.deepcopy(d_gnn).double()
+            gx = part_grads(part, cfgs[(True, "float32")], g64, p_node.double(),
+                            p_adj.double(), cot.double())
+            del g64
+            leaves = compare_leaves(gp, gd, gx)
+            row["grad_packed_vs_dense_worst_ratio_to_bar"] = max(
+                r["max_abs_err"] / r["bar"] for r in leaves)
+            row["grad_packed_vs_f64_worst"] = max(r["kernel_vs_f64"] for r in leaves)
+            names_ = [n for n, _ in d_gnn.named_parameters()
+                      if part == "gnn" or n.startswith("embed_layer.")]
+            row["grad_leaves_past_the_bar"] = {
+                n: {"max_abs_err": r["max_abs_err"], "bar": r["bar"],
+                    "packed_vs_f64": r["kernel_vs_f64"], "dense_vs_f64": r["plain_vs_f64"]}
+                for n, r in zip(names_, leaves) if r["max_abs_err"] > r["bar"]}
+            ok &= all(r["ok"] or r["kernel_vs_f64"] <= r["bar"] for r in leaves)
+            # bfloat16 gradients on the first PACKED_CPU_GRAPHS graphs
+            sub = (p_node[:n_cpu], p_adj[:n_cpu], cot[:n_cpu])
+            cpu_sub = tuple(t.cpu() for t in sub)
+            gk16 = part_grads(part, cfgs[(True, "bfloat16")], d_gnn, *sub)
+            gh16 = part_grads(part, cfgs[(True, "bfloat16")], cpu_gnn, *cpu_sub)
+            gh32 = part_grads(part, cfgs[(True, "float32")], cpu_gnn, *cpu_sub)
+            worst16 = 0.0
+            for k_, h_, ref in zip(gk16, gh16, gh32):
+                d_card = (k_.cpu().float() - ref).abs().max().item()
+                d_cpu = (h_.float() - ref).abs().max().item()
+                bar = BF16_RATIO * d_cpu + BF16_GRAD_ATOL * ref.abs().max().item() + GRAD_ATOL
+                worst16 = max(worst16, d_card / bar)
+            row["bf16_grad_worst_ratio_to_bar"] = worst16
+            ok &= worst16 <= 1.0
+            row["ok"] = bool(ok)
+            packed_rows.append(row)
+            del gp, gd, gx, gk16
+        del p_node, p_adj, d_gnn
+        torch.cuda.empty_cache()
+    emit({"phase": "packed_card", "rows": packed_rows,
+          "bars": {"packed_vs_dense": PACKED_FWD_TOL,
+                   "f64": f"card <= {DENSE_F64_RATIO} x cpu_f32 + {DENSE_F64_ATOL}",
+                   "bf16": f"card <= {BF16_RATIO} x cpu_bf16 + {BF16_ATOL} (gradients: + "
+                           f"{BF16_GRAD_ATOL} x max + {GRAD_ATOL})"},
+          "phase_seconds": time.perf_counter() - t_phase})
+    if not all(r["ok"] for r in packed_rows):
+        raise AssertionError(f"packed_card: {[(r['part'], r['E']) for r in packed_rows if not r['ok']]}")
+
+    # ---------------------------------------------------------------- fused_card
+    # Run 1: the dense route's first-epoch update fused (--fuse_gnn_trunks)
+    # and unfused on the card, from the same weights and one buffer of
+    # DENSE_CMP_ENVS envs: values, log-probs and entropy at FUSED_TOL, every
+    # leaf's gradient at FUSED_GRAD_TOL; then both 2-epoch updates profiled
+    # on one flagship buffer (TRAIN_ENVS envs), side by side.  Run 2: the
+    # kernel route with both flags through the CLIs, which must launch rows
+    # 1 and 2 as without them and rows 3 and 4 never (train_and_eval's
+    # launch check).
+    t_phase = time.perf_counter()
+    fused_specs = {"fused": (dev, "float32", {}, {"fuse_gnn_trunks": True}),
+                   "unfused": (dev, "float32")}
+    f_sides, f_first, _, f_buf, _ = first_epoch_grads(ep, DENSE_CMP_ENVS, fused_specs,
+                                                      {"gnn_impl": "dense"})
+    f_outs = {}
+    for side, (tr, st) in f_sides.items():
+        batch = tr._time_major(tr.chunks(st, f_buf))
+        with torch.no_grad():
+            f_outs[side] = tr.policy.evaluate_actions(
+                st.params, batch["share_obs"], batch["obs"], batch["node_obs"], batch["adj"],
+                batch["agent_id"], batch["h_actor"], batch["h_critic"], batch["actions"],
+                batch["masks"], batch["avail"], batch["active_masks"])
+    if not (f_sides["fused"][0].policy._fused_routable()
+            and not f_sides["unfused"][0].policy._fused_routable()):
+        raise AssertionError("fused_card: the fused side does not route to the fused trunks")
+    fused_run = {"envs": DENSE_CMP_ENVS, "outputs_max_abs_err": {}, "grad_worst_ratio_to_bar": 0.0}
+    for name, a_, b_ in zip(("values", "log_probs", "entropy"), f_outs["fused"],
+                            f_outs["unfused"]):
+        fused_run["outputs_max_abs_err"][name] = (a_ - b_).abs().max().item()
+        if not torch.allclose(a_, b_, **FUSED_TOL):
+            raise AssertionError(f"fused_card: fused and unfused {name} disagree")
+    for n, want in f_first["unfused"].items():
+        got = f_first["fused"][n]
+        ratio = ((got - want).abs() / (FUSED_GRAD_TOL["atol"]
+                                       + FUSED_GRAD_TOL["rtol"] * want.abs())).max().item()
+        fused_run["grad_worst_ratio_to_bar"] = max(fused_run["grad_worst_ratio_to_bar"], ratio)
+        if ratio > 1.0 or (n.startswith(("actor.gnn_base", "critic.gnn_base"))
+                           and "lin_key.bias" not in n and not got.abs().max() > 0):
+            raise AssertionError(f"fused_card: fused gradient of {n} at {ratio} of the bar")
+    # the two updates profiled on one flagship buffer
+    prof_base = Runner(env_params=ep, policy=f_sides["unfused"][0].policy,
+                       trainer=f_sides["unfused"][0], n_rollout_threads=TRAIN_ENVS,
+                       episode_length=STEPS)
+    _, prof_buf, _ = prof_base.collect(f_sides["unfused"][1], prof_base.init_carry(SEED + 8))
+    fused_profiles = {}
+    for side, (tr, st) in f_sides.items():
+        fused_profiles[side], _ = update_profile_of(
+            dataclasses.replace(prof_base, policy=tr.policy, trainer=tr), st, None, prof_buf)
+        if fused_profiles[side]["trunk_kernel_launches"]:
+            raise AssertionError(f"fused_card: the {side} update ran trunk kernels")
+    del prof_buf
+    # one attention softmax a conv layer for both networks, against one a
+    # conv layer and network
+    sm_f = fused_profiles["fused"]["softmax_ops_per_epoch"]
+    sm_u = fused_profiles["unfused"]["softmax_ops_per_epoch"]
+    if not (sm_f == 1 + cfg.gnn_layer_n and sm_u == 2 * sm_f):
+        raise AssertionError(f"fused_card: softmax ops an epoch fused {sm_f}, unfused {sm_u}")
+    fk_argv = common + flagship_n + ["--fuse_gnn_trunks", "True", "--gnn_edge_packed", "True"]
+    fk_out, fk_ev = train_and_eval(
+        "fused_kernel_route", fk_argv, TRAIN_ENVS, SAFETY_CMP_ENVS,
+        ["--num_agents", str(ep.num_agents)], False,
+        case="flagship kernel route --fuse_gnn_trunks True --gnn_edge_packed True", profile=False,
+        compare=lambda env_, envs_, **kw: update_card_vs_cpu(
+            env_, envs_, cfg_kw={"gnn_edge_packed": True}, policy_kw={"fuse_gnn_trunks": True},
+            **kw))
+    emit({"phase": "fused_card", "run1_dense_update": fused_run,
+          "run1_update_profiles": {side: {k: v for k, v in prof.items()
+                                          if k != "top_device_ms_per_epoch"}
+                                   for side, prof in fused_profiles.items()},
+          "run1_top_device_ms_per_epoch": {side: prof["top_device_ms_per_epoch"]
+                                           for side, prof in fused_profiles.items()},
+          "run2_kernel_route": {"argv": fk_argv, "trunk_launches": fk_out["trunk_launches"],
+                                "eval_launches": fk_ev},
+          "bars": {"outputs": FUSED_TOL, "grads": FUSED_GRAD_TOL},
+          "phase_seconds": time.perf_counter() - t_phase})
+
+    # ---------------------------------------------------------------- packed_train, packed_eval
+    # the flagship at the CLI's default bfloat16 with --gnn_impl dense
+    # --gnn_edge_packed True --fuse_gnn_trunks True: two episodes, no trunk
+    # kernel; one update's gradients card against CPU at the bfloat16 bar
+    packed_argv = [a for a in common if a not in ("--compute_dtype", "float32")] + flagship_n + [
+        "--gnn_impl", "dense", "--gnn_edge_packed", "True", "--fuse_gnn_trunks", "True"]
+    packed_policy = cli_train.build(parse_all(packed_argv))[1]
+    if not (packed_policy.cfg.bf16 and packed_policy.cfg.gnn_edge_packed
+            and packed_policy._fused_routable()):
+        raise AssertionError("the packed command line does not train packed and fused in "
+                             "bfloat16")
+    del packed_policy
+    packed_out, packed_ev = train_and_eval(
+        "packed", packed_argv, TRAIN_ENVS, BF16_CMP_ENVS, ["--num_agents", str(ep.num_agents)],
+        False, case="flagship --gnn_impl dense --gnn_edge_packed --fuse_gnn_trunks, bfloat16",
+        kernel_route=False,
+        compare=lambda env_, envs_, **kw: bf16_update_vs_cpu(
+            env_, envs_, cfg_kw={"gnn_impl": "dense", "gnn_edge_packed": True},
+            policy_kw={"fuse_gnn_trunks": True}, **kw))
+
     # ---------------------------------------------------------------- summary
     emit({"kernels": [{
         "name": "gnn_trunk_fwd", "route": "cuda",
@@ -2944,6 +3201,12 @@ def main() -> int:
         "dense_route_eval_launches": {"dense": dense_ev[0], "concat": concat_ev[0],
                                       "aggr": aggr_ev[0]},
         "dense_card_comparison_launches": dense_kernel_launches[0],
+        # both layout flags on the kernel route (as without them), and the
+        # packed, fused dense route (none)
+        "fused_kernel_route_train_launches": fk_out["trunk_launches"]["forward"],
+        "fused_kernel_route_eval_launches": fk_ev[0],
+        "packed_train_launches": packed_out["trunk_launches"]["forward"],
+        "packed_eval_launches": packed_ev[0],
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_by_graphs": {r["B"]: r["ms"] for r in sizes},
@@ -2971,6 +3234,8 @@ def main() -> int:
             "concat": concat_out["trunk_launches"]["backward"],
             "aggr": aggr_out["trunk_launches"]["backward"]},
         "dense_card_comparison_launches": dense_kernel_launches[1],
+        "fused_kernel_route_train_launches": fk_out["trunk_launches"]["backward"],
+        "packed_train_launches": packed_out["trunk_launches"]["backward"],
         "max_abs_err": bwd_max_err,
         "ms_by_shape": {f"E{r['E']}_Ds{r['Ds']}_B{r['B']}_{'relu' if r['acts'][1] else 'tanh'}":
                         r["ms"] for r in walls_trunk if r["row"] == 2},

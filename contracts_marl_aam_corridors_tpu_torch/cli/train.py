@@ -46,9 +46,9 @@ missing, as the JAX package does.
 
 Differences from the JAX package: one device (no data mesh, ROADMAP A10);
 the classic-MPE path (``build_mpe``/``main_mpe``) waits for ROADMAP A9;
-``--fuse_gnn_trunks``, a warm start from the reference's ``actor.pt``
-weights and graphs of more entities than the trunk kernels take are
-refused, naming the ROADMAP item that brings them; seeds are integers
+a warm start from the reference's ``actor.pt`` weights and graphs of more
+entities than the trunk kernels take are refused, naming the ROADMAP item
+that brings them; seeds are integers
 drawn from ``--seed``, not JAX keys.  ``--compute_dtype`` defaults to
 bfloat16, as the JAX package's does: the MLP tails compute in bfloat16, the
 GNN trunk in float32 on the kernel trunk and in bfloat16 on the dense
@@ -56,7 +56,10 @@ route (``models/nets.py``).  ``--gnn_impl dense``, ``--gnn_concat_heads``
 and ``--actor_graph_aggr global`` train both networks through the dense
 per-graph GNN modules, plain torch on the card (``models/config.py``);
 ``config.json`` records them, and the eval CLI rebuilds the same route
-from it.  ``--critic_graph_aggr node`` is refused with a ``ValueError``
+from it.  On that route ``--gnn_edge_packed True`` takes the packed edge
+layout and ``--fuse_gnn_trunks True`` runs both GNNs of the PPO update as
+one pass over their stacked parameters; the kernel trunk ignores both, as
+the JAX package's transposed route does.  ``--critic_graph_aggr node`` is refused with a ``ValueError``
 before the run writes anything (``models/config.py``).
 """
 from __future__ import annotations
@@ -77,8 +80,6 @@ def build(args, device=None):
     from ..models import GRMAPPOPolicy, PolicyDims
     from ..ops.gnn_trunk import MAX_ENTITIES
 
-    if args.fuse_gnn_trunks:
-        raise not_ported("--fuse_gnn_trunks", "A11")
     env_params = build_env_params(args)
     if env_params.num_entities > MAX_ENTITIES:
         raise not_ported(f"graphs of more than {MAX_ENTITIES} entities (agents, landmarks, "
@@ -94,7 +95,7 @@ def build(args, device=None):
     policy = GRMAPPOPolicy(
         cfg, dims, device=device, lr=args.lr, critic_lr=args.critic_lr,
         opti_eps=args.opti_eps, max_grad_norm=args.max_grad_norm,
-        use_max_grad_norm=args.use_max_grad_norm,
+        use_max_grad_norm=args.use_max_grad_norm, fuse_gnn_trunks=args.fuse_gnn_trunks,
     )
     # non-recurrent 'mappo' trains on single steps (graph_buffer.py:368);
     # --use_naive_recurrent_policy on whole-episode chunks

@@ -28,10 +28,11 @@ a row, on which the JAX package's critic stops at its first collect.
 ``--compute_dtype`` defaults to bfloat16, as there: on the kernel trunk it
 takes the JAX package's ``pallas_fused`` semantics (the trunk in float32,
 the MLP tails in bfloat16), on the dense route the trunk computes in
-bfloat16 too (``models/nets.py``).  The packed edge layout
-(``--gnn_edge_packed``, ROADMAP A6.2) is refused, and so are trunk widths,
-embed depths and conv depths the kernels are not built for, on either
-route, and graphs of more entities (``cli/train.py build``; A6.3).
+bfloat16 too (``models/nets.py``).  ``--gnn_edge_packed True`` takes the
+dense route's packed edge layout, and the kernel trunk ignores it, as the
+JAX package's transposed route does.  Trunk widths, embed depths and conv
+depths the kernels are not built for are refused on either route, and so
+are graphs of more entities (``cli/train.py build``; A6.3).
 """
 from __future__ import annotations
 
@@ -183,14 +184,14 @@ def graph_config(args, parser: argparse.ArgumentParser, return_extras: bool = Fa
                         help="the JAX package's GNN trunk implementation; "
                         "the port runs the transposed formulation (its CUDA "
                         "kernels on the card) for every choice but 'dense', "
-                        "which it refuses")
+                        "which takes the dense per-graph modules")
     parser.add_argument("--gnn_edge_packed", type=_bool, default=False,
-                        help="the JAX package's lane-packed EmbedConv "
-                        "edge-MLP layout; refused by the port")
+                        help="the JAX package's packed EmbedConv edge layout "
+                        "(its group LayerNorm); dense route only")
     parser.add_argument("--fuse_gnn_trunks", type=_bool, default=False,
-                        help="the JAX package's actor+critic GNNs as one "
-                        "vmapped launch in the PPO update; refused by the "
-                        "port")
+                        help="the actor's and the critic's dense GNNs as one "
+                        "pass over stacked parameters in the PPO update; "
+                        "dense route only")
     all_args, extras = parser.parse_known_args(args)
 
     if all_args.auto_mini_batch_size:
@@ -349,17 +350,15 @@ def build_env_params(args):
 
 def build_model_config(args):
     """argparse.Namespace -> the port's ``ModelConfig`` (the JAX package's
-    ``build_model_config``, :332).  Raises ``NotImplementedError`` for the
-    packed edge layout and for trunk shapes the kernels are not built for,
-    on either route (``ModelConfig`` itself takes them: the CPU's plain
-    trunk and the dense modules run them), and ``ValueError`` (from
+    ``build_model_config``, :332).  Raises ``NotImplementedError`` for
+    trunk shapes the kernels are not built for, on either route
+    (``ModelConfig`` itself takes them: the CPU's plain trunk and the dense
+    modules run them), and ``ValueError`` (from
     ``ModelConfig``) for the critic's 'node' aggregation, which the JAX
     package's critic cannot run."""
     from ..models.config import ModelConfig
     from ..ops.gnn_trunk import KERNEL_WIDTH, MAX_EMBED_LAYERS, MAX_GNN_LAYERS
 
-    if args.gnn_edge_packed:
-        raise not_ported("--gnn_edge_packed", "A6.2")
     if {args.embed_hidden_size, args.gnn_hidden_size} != {KERNEL_WIDTH}:
         raise not_ported(f"trunk widths other than {KERNEL_WIDTH} (--embed_hidden_size, "
                          "--gnn_hidden_size)", "A6.3")
@@ -394,4 +393,5 @@ def build_model_config(args):
         max_edge_dist=args.max_edge_dist,
         compute_dtype=args.compute_dtype,
         gnn_impl=args.gnn_impl,
+        gnn_edge_packed=args.gnn_edge_packed,
     )

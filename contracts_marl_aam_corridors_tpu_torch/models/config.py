@@ -21,6 +21,9 @@ policy chooses (``_transposed_routable``, policy.py:237-247; the property
 * the dense per-graph modules (``gnn_impl='dense'``, or any other
   aggregation or ``gnn_concat_heads``): plain torch on either device,
   as the JAX package's flax modules are plain XLA (``models/nets.py``).
+  ``gnn_edge_packed`` selects the dense route's packed edge layout (the
+  JAX package's ``EmbedConv`` with ``gnn_edge_packed=True``); the kernel
+  trunk ignores it, as the JAX package's transposed route does.
 
 The JAX package's ``resolve_gnn_impl`` and ``apply_entity_envelope`` are
 not ported: they choose between TPU implementations.  The critic's 'node'
@@ -75,6 +78,9 @@ class ModelConfig:
     # 'dense' takes the dense per-graph modules; 'auto' (recorded as
     # 'transposed'), 'transposed' and 'pallas_fused' the kernel trunk
     gnn_impl: str = "auto"
+    # the packed edge layout of the JAX package's EmbedConv (its group
+    # LayerNorm): read by the dense route only, the same parameter tree
+    gnn_edge_packed: bool = False
 
     def __post_init__(self):
         if self.gnn_impl not in ("auto", "dense", "transposed", "pallas_fused"):

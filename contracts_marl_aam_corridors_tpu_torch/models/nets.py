@@ -18,8 +18,11 @@ as the JAX package's policy routes them (policy.py:237-247):
   card.  ``gnn_transposed_apply_dual`` runs the actor's and the critic's
   trunks in one call of the dual kernels; the policy does not route it;
 * the dense per-graph ``EmbedConv`` / ``TransformerConv`` / ``GNNBase``
-  forward (nets.py:143-402, the dense edge layout), batched over a leading
-  graph axis instead of ``nn.vmap``: ``gnn_dense_apply``.  It is plain
+  forward (nets.py:143-402), batched over a leading graph axis instead of
+  ``nn.vmap``: ``gnn_dense_apply``, with ``EmbedConv`` in the dense edge
+  layout or, under ``gnn_edge_packed``, the packed one
+  (``embed_conv_packed``), and ``gnn_dense_nodes_dual`` for the actor's
+  and the critic's GNN in one pass over stacked parameters.  It is plain
   torch on the card and the CPU alike, as the JAX package's flax modules
   are plain XLA, and it alone serves concatenated heads (``lin_skip`` and
   the extra conv layers H*C wide), the actor's global pool and
@@ -369,6 +372,101 @@ class GNNBase(nn.Module):
 
 
 # ---------------------------------------------------------------- dense route
+_SPLIT_ROWS, _MAX_CHUNKS = 8192, 256
+
+
+class _SideLinear(torch.autograd.Function):
+    """``x @ w^T + b`` for S sides at once: ``w`` (S, out, in), ``b`` (S,
+    out) or None, ``x`` (S, ..., in), each side its own input.  One batched
+    product forward and for the input's gradient; the weight's gradient is
+    one batched product too, split over the rows into chunks of at most
+    ``_SPLIT_ROWS`` that are summed after (in float32).  cuBLAS runs a
+    batched (out x in) product over millions of rows on one CTA a side, a
+    hundred times the time of the single product's split-K kernel."""
+
+    @staticmethod
+    def forward(x, w, b):
+        S, n_in = w.shape[0], w.shape[-1]
+        out = torch.bmm(x.reshape(S, -1, n_in), w.transpose(1, 2))
+        if b is not None:
+            out = out + b[:, None, :]
+        return out.reshape(x.shape[:-1] + (w.shape[1],))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        S, n_out, n_in = w.shape
+        g2 = g.reshape(S, -1, n_out)
+        x2 = x.reshape(S, -1, n_in)
+        dx = torch.bmm(g2, w).reshape(x.shape)
+        R = g2.shape[1]
+        chunks = max(1, min(_MAX_CHUNKS, -(-R // _SPLIT_ROWS)))
+        per = -(-R // chunks)
+        acc = torch.promote_types(w.dtype, torch.float32)
+        g2, x2 = g2.to(acc), x2.to(acc)
+        if per * chunks != R:
+            g2 = nn.functional.pad(g2, (0, 0, 0, per * chunks - R))
+            x2 = nn.functional.pad(x2, (0, 0, 0, per * chunks - R))
+        dw = torch.bmm(g2.reshape(S * chunks, per, n_out).transpose(1, 2),
+                       x2.reshape(S * chunks, per, n_in))
+        dw = dw.reshape(S, chunks, n_out, n_in).sum(dim=1).to(w.dtype)
+        db = g2.sum(dim=1).to(w.dtype) if ctx.has_bias else None
+        return dx, dw, db
+
+
+class _Linear(torch.autograd.Function):
+    """``nn.functional.linear(x, w, b)`` (``b`` may be None), with the
+    gradients autograd gives it, and a ``torch.func.vmap`` rule for
+    ``gnn_dense_nodes_dual``'s side axis: a shared input takes the sides'
+    weights as one (S*out, in) product, a per-side input the side-batched
+    :class:`_SideLinear`."""
+
+    @staticmethod
+    def forward(x, w, b):
+        return nn.functional.linear(x, w, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dw = g2.T @ x.reshape(-1, x.shape[-1])
+        return g @ w, dw, g2.sum(dim=0) if ctx.has_bias else None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b):
+        # every weight and bias is stacked over the sides
+        x_dim, w_dim, b_dim = in_dims
+        S = info.batch_size
+        w = w.movedim(w_dim, 0)
+        b = None if b is None else b.movedim(b_dim, 0)
+        if x_dim is None:
+            out = nn.functional.linear(x, w.reshape(-1, w.shape[-1]),
+                                       None if b is None else b.reshape(-1))
+            return out.unflatten(-1, (S, -1)).movedim(-2, 0), 0
+        return _SideLinear.apply(x.movedim(x_dim, 0), w, b), 0
+
+
+def _gnn_linear(w: Tensor, b: Tensor, x: Tensor, bf16: bool) -> Tensor:
+    """The dense GNN's ``Dense`` layers, ``x @ w^T + b`` in the parameters'
+    dtype, or in bfloat16 as :func:`_dense_bf16` rounds (the product, then
+    the bias sum), through :class:`_Linear`."""
+    if bf16:
+        return _Linear.apply(x.to(BF16), w.to(BF16), None) + b.to(BF16)
+    return _Linear.apply(x, w, b)
+
+
 def adjacency_mask(adj: Tensor, max_edge_dist: float) -> tuple[Tensor, Tensor]:
     """Edge mask and weights of a distance adjacency (nets.py:143-151;
     reference ``process_adj``, gnn_new.py:328-358): an edge s -> t where
@@ -387,14 +485,60 @@ def embed_conv_dense(cfg: ModelConfig, ec: EmbedConvParams, node_obs: Tensor,
     isolated node comes out zero.  Returns (B, E, embed_hidden)."""
     act = torch.relu if cfg.embed_use_relu else torch.tanh
     bf16 = cfg.bf16
-    h_src = _linear(ec.lin1, _embed_src(ec, node_obs), bf16)
+    h_src = _gnn_linear(ec.lin1.weight, ec.lin1.bias, _embed_src(ec, node_obs), bf16)
     # msg[b, s, t] = h_src[b, s] + d[b, s, t] * w_edge
     msg = h_src[:, :, None, :] + edge_attr[..., None] * ec.lin1_edge[0].to(h_src.dtype)
     msg = _act_norm(ec.ln1, msg, act, bf16)
     for i in range(cfg.embed_layer_n):
+        lin = getattr(ec, f"lin{i + 2}")
         msg = _act_norm(getattr(ec, f"ln{i + 2}"),
-                        _linear(getattr(ec, f"lin{i + 2}"), msg, bf16), act, bf16)
+                        _gnn_linear(lin.weight, lin.bias, msg, bf16), act, bf16)
     # out[b, t] = sum_s mask[b, s, t] * msg[b, s, t]
+    return _sum_rounded(msg * edge_mask[..., None].to(msg.dtype), dim=1)
+
+
+def _group_mean(x: Tensor, inv: Tensor) -> Tensor:
+    """The mean over the last axis as the JAX package's ``_group_ln`` takes
+    it, a product with 1/F in ``x``'s dtype (``inv``): the exact products
+    accumulated in float32 (or float64) and rounded once to ``x``'s
+    dtype."""
+    acc = x.to(torch.promote_types(x.dtype, torch.float32))
+    return (acc * inv.to(acc.dtype)).sum(dim=-1, keepdim=True).to(x.dtype)
+
+
+def _group_ln(ln: nn.LayerNorm, x: Tensor) -> Tensor:
+    """The packed layout's LayerNorm (nets.py:183-195) in ``x``'s dtype:
+    the mean, then the variance around it (two passes), each by
+    :func:`_group_mean`; then ``(x - mu) * rsqrt(var + eps) * scale +
+    bias``, every operation rounded to that dtype (in bfloat16 XLA's CPU
+    rounds there: ``scripts/packed_bf16_rounding_probe.py``)."""
+    dt = x.dtype
+    inv = torch.tensor(1.0 / x.shape[-1], dtype=dt)
+    d = x - _group_mean(x, inv)
+    var = _group_mean(d * d, inv)
+    r = torch.rsqrt(var + torch.tensor(LN_EPS, dtype=dt))
+    return d * r * ln.weight.to(dt) + ln.bias.to(dt)
+
+
+def embed_conv_packed(cfg: ModelConfig, ec: EmbedConvParams, node_obs: Tensor,
+                      edge_mask: Tensor, edge_attr: Tensor) -> Tensor:
+    """``EmbedConv`` in the packed edge layout (nets.py:248-267,
+    ``gnn_edge_packed=True``), on the (B, E_s, E_t, F) message tensor of
+    :func:`embed_conv_dense`: the TPU layout's tiles, ``kron(I_E, W)``
+    products and repeated mask add only zero blocks, so one F x F product a
+    layer computes them.  What the layout changes is kept: the activation's
+    result and every step of :func:`_group_ln` in the compute dtype, where
+    the dense layout takes float32 LayerNorm statistics.  The same
+    parameters; returns (B, E, embed_hidden)."""
+    act = torch.relu if cfg.embed_use_relu else torch.tanh
+    bf16 = cfg.bf16
+    h_src = _gnn_linear(ec.lin1.weight, ec.lin1.bias, _embed_src(ec, node_obs), bf16)
+    msg = h_src[:, :, None, :] + edge_attr[..., None] * ec.lin1_edge[0].to(h_src.dtype)
+    msg = _group_ln(ec.ln1, act(msg))
+    for i in range(cfg.embed_layer_n):
+        lin = getattr(ec, f"lin{i + 2}")
+        msg = _group_ln(getattr(ec, f"ln{i + 2}"),
+                        act(_gnn_linear(lin.weight, lin.bias, msg, bf16)))
     return _sum_rounded(msg * edge_mask[..., None].to(msg.dtype), dim=1)
 
 
@@ -415,10 +559,7 @@ def transformer_conv_dense(cfg: ModelConfig, tc: TransformerConvParams, x: Tenso
     bf16 = cfg.bf16
     qkv_w = torch.cat([tc.lin_query.weight, tc.lin_key.weight, tc.lin_value.weight])
     qkv_b = torch.cat([tc.lin_query.bias, tc.lin_key.bias, tc.lin_value.bias])
-    if bf16:
-        qkv = torch.matmul(x.to(BF16), qkv_w.to(BF16).T) + qkv_b.to(BF16)
-    else:
-        qkv = nn.functional.linear(x, qkv_w, qkv_b)
+    qkv = _gnn_linear(qkv_w, qkv_b, x, bf16)
     # head-major (B, H, E, C)
     qh, kh, vh = (t.reshape(B, E, H, C).transpose(1, 2) for t in qkv.split(H * C, dim=-1))
     w = tc.lin_edge.reshape(H, C).to(qh.dtype)
@@ -436,7 +577,7 @@ def transformer_conv_dense(cfg: ModelConfig, tc: TransformerConvParams, x: Tenso
         out = out.transpose(1, 2).reshape(B, E, H * C)
     else:
         out = _sum_rounded(out, dim=1, mean=True)
-    return out + _linear(tc.lin_skip, x, bf16)
+    return out + _gnn_linear(tc.lin_skip.weight, tc.lin_skip.bias, x, bf16)
 
 
 def gnn_dense_nodes(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: Tensor) -> Tensor:
@@ -447,10 +588,41 @@ def gnn_dense_nodes(cfg: ModelConfig, gnn: GNNBase, node_obs: Tensor, adj: Tenso
     cdt = BF16 if cfg.bf16 else gnn.embed_layer.lin1.weight.dtype
     edge_mask, edge_attr = adjacency_mask(adj, cfg.max_edge_dist)
     node_obs, edge_attr = node_obs.to(cdt), edge_attr.to(cdt)
-    x = embed_conv_dense(cfg, gnn.embed_layer, node_obs, edge_mask, edge_attr)
+    embed = embed_conv_packed if cfg.gnn_edge_packed else embed_conv_dense
+    x = embed(cfg, gnn.embed_layer, node_obs, edge_mask, edge_attr)
     for name in ["gnn1"] + [f"gnn2_{i}" for i in range(cfg.gnn_layer_n)]:
         x = act(transformer_conv_dense(cfg, getattr(gnn, name), x, edge_mask, edge_attr))
     return x
+
+
+class _DenseNodes(nn.Module):
+    """``gnn_dense_nodes`` of one ``GNNBase`` as a module call, for
+    ``torch.func.functional_call``."""
+
+    def __init__(self, gnn: GNNBase):
+        super().__init__()
+        self.gnn = gnn
+
+    def forward(self, node_obs: Tensor, adj: Tensor) -> Tensor:
+        return gnn_dense_nodes(self.gnn.cfg, self.gnn, node_obs, adj)
+
+
+def gnn_dense_nodes_dual(gnn_a: GNNBase, gnn_c: GNNBase, node_obs: Tensor,
+                         adj: Tensor) -> tuple[Tensor, Tensor]:
+    """The per-node outputs of two dense GNNBases of one structure (the
+    actor's and the critic's) on the same graphs in one pass, as the JAX
+    package's ``_fused_trunks`` (policy.py:169-208) vmaps one GNNBase over
+    their stacked parameters.  Each parameter pair is stacked on a leading
+    axis of 2 inside the autograd graph (``torch.stack``), so each side's
+    gradient reaches its own module, and ``torch.func.vmap`` maps
+    :func:`gnn_dense_nodes` over that axis: each op runs once for both
+    networks, its products batched over the side axis.  Returns the two
+    (B, E, gnn_out_dim) outputs."""
+    pc = dict(gnn_c.named_parameters())
+    stacked = {f"gnn.{n}": torch.stack([p, pc[n]]) for n, p in gnn_a.named_parameters()}
+    nodes = torch.func.vmap(
+        lambda p: torch.func.functional_call(_DenseNodes(gnn_a), p, (node_obs, adj)))(stacked)
+    return nodes[0], nodes[1]
 
 
 def dense_aggregate(x: Tensor, aggr: str, agent_id: Tensor | None) -> Tensor:

@@ -24,6 +24,11 @@ card as on the CPU, as the JAX package's does.  The critic pools globally
 and takes no agent ids (the JAX signature's ``share_agent_id``); the
 actor's global pool ignores its ``agent_id``.  Inputs of any floating type
 are cast to the parameters' float32.
+
+``fuse_gnn_trunks`` (the JAX package's flag, policy.py:56, 81) acts where
+the JAX package's does: in ``evaluate_actions`` on the dense route with the
+actor's 'node' gather, both GNNs run as one pass over their stacked
+parameters; the other calls and the kernel trunk run as without it.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 from ..device import resolve_device
 from . import distributions as dist
+from . import nets
 from .actor_critic import GRActor, GRCritic
 from .config import ModelConfig
 
@@ -71,6 +77,7 @@ class GRMAPPOPolicy:
         opti_eps: float = 1e-5,
         max_grad_norm: float = 10.0,
         use_max_grad_norm: bool = True,
+        fuse_gnn_trunks: bool = False,
     ):
         self.cfg = cfg
         self.dims = dims
@@ -80,6 +87,7 @@ class GRMAPPOPolicy:
         self.opti_eps = opti_eps
         self.max_grad_norm = max_grad_norm
         self.use_max_grad_norm = use_max_grad_norm
+        self.fuse_gnn_trunks = fuse_gnn_trunks
 
     def init_params(self, seed: int) -> PolicyParams:
         """Fresh actor and critic, drawn on the CPU from ``seed`` (the same
@@ -168,6 +176,25 @@ class GRMAPPOPolicy:
         actions = dist.mode(logits) if deterministic else dist.sample(gen, logits)
         return actions, rnn_states_actor
 
+    def _fused_routable(self) -> bool:
+        """Whether ``evaluate_actions`` runs both GNNs as one pass
+        (policy.py:387-409): ``fuse_gnn_trunks`` on the dense route with
+        the actor's 'node' gather (the critic pools globally).  The kernel
+        trunk keeps its two calls with the flag as without it."""
+        return (self.fuse_gnn_trunks and not self.cfg.kernel_trunk
+                and self.cfg.actor_graph_aggr == "node")
+
+    def _fused_trunks(self, params: PolicyParams, obs, cent_obs, node_obs, adj, agent_id):
+        """The JAX package's ``_fused_trunks`` (policy.py:169-208) on flat
+        rows: both dense GNNs in one pass over their stacked parameters
+        (``nets.gnn_dense_nodes_dual``), the actor's node gather and the
+        critic's global pool, then each side's ``post_gnn``."""
+        nodes_a, nodes_c = nets.gnn_dense_nodes_dual(
+            params.actor.gnn_base, params.critic.gnn_base, node_obs, adj)
+        nbd_a = nets.dense_aggregate(nodes_a, "node", agent_id)
+        nbd_c = nets.dense_aggregate(nodes_c, self.cfg.global_aggr_type, None)
+        return params.actor.post_gnn(obs, nbd_a), params.critic.post_gnn(cent_obs, nbd_c)
+
     def evaluate_actions(
         self,
         params: PolicyParams,
@@ -189,20 +216,26 @@ class GRMAPPOPolicy:
 
         The leading axes are (L, B, ...); the RNN states are the (B, rN, H)
         states at each chunk's head.  Both GNN+MLP trunks run once over all
-        L*B rows, then a loop over the L steps advances both GRU heads with
-        their masks.  The entropy is averaged over ``active_masks``.
-        Differentiable: on the card each trunk's backward is the
-        ``gnn_trunk_bwd`` kernel.
+        L*B rows (with ``fuse_gnn_trunks`` on the dense route, both GNNs in
+        one pass: ``_fused_trunks``), then a loop over the L steps advances
+        both GRU heads with their masks.  The entropy is averaged over
+        ``active_masks``.  Differentiable: on the card each trunk's backward
+        is the ``gnn_trunk_bwd`` kernel.
         """
         L = obs.shape[0]
         flat = lambda x: x.reshape((L * x.shape[1],) + x.shape[2:])
         unflat = lambda x: x.reshape((L, -1) + x.shape[1:])
         node_obs, adj, masks = _f32(node_obs), _f32(adj), _f32(masks)
         available_actions = _f32(available_actions)
-        feats_a = unflat(params.actor.trunk(_f32(flat(obs)), flat(node_obs), flat(adj),
-                                            flat(agent_id)))
-        feats_c = unflat(params.critic.trunk(_f32(flat(cent_obs)), flat(node_obs), flat(adj),
-                                             None))
+        obs, cent_obs = _f32(flat(obs)), _f32(flat(cent_obs))
+        node_obs, adj = flat(node_obs), flat(adj)
+        if self._fused_routable():
+            feats_a, feats_c = self._fused_trunks(params, obs, cent_obs, node_obs, adj,
+                                                  flat(agent_id))
+        else:
+            feats_a = params.actor.trunk(obs, node_obs, adj, flat(agent_id))
+            feats_c = params.critic.trunk(cent_obs, node_obs, adj, None)
+        feats_a, feats_c = unflat(feats_a), unflat(feats_c)
         h_a, h_c = _f32(rnn_states_actor), _f32(rnn_states_critic)
         logits, values = [], []
         for t in range(L):

@@ -142,6 +142,9 @@ PORTED = {
     "dense_gnn": ["--gnn_impl", "dense"],
     "concat_heads": ["--gnn_concat_heads"],
     "actor_aggr": ["--actor_graph_aggr", "global", "--global_aggr_type", "max"],
+    # the dense route's two layout flags, which the kernel route ignores
+    "edge_packed": ["--gnn_edge_packed", "True"],
+    "fuse_trunks": ["--fuse_gnn_trunks", "True"],
 }
 
 
@@ -169,7 +172,8 @@ def test_ported_env_params_match_jax(name):
         "safety_rvo": ("rotate_tube_july", 5, 5, 8), "curriculum": ("rotate_tube_july", 25, 5, 8),
         "centralized_v_off": ("rotate_tube_july", 25, 5, 8),
         "dense_gnn": ("rotate_tube_july", 25, 5, 8), "concat_heads": ("rotate_tube_july", 25, 5, 8),
-        "actor_aggr": ("rotate_tube_july", 25, 5, 8)}[name]
+        "actor_aggr": ("rotate_tube_july", 25, 5, 8), "edge_packed": ("rotate_tube_july", 25, 5, 8),
+        "fuse_trunks": ("rotate_tube_july", 25, 5, 8)}[name]
     tcfg, jcfg = flags.build_model_config(targs), jflags.build_model_config(jargs)
     for f in dataclasses.fields(tcfg):
         assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
@@ -184,6 +188,12 @@ def test_ported_env_params_match_jax(name):
     assert runner.use_centralized_v == (name != "centralized_v_off") == targs.use_centralized_V
     assert (runner.hj_data is not None) == (name == "safety_hj")
     assert policy.cfg.gnn_out_dim == (48 if name == "concat_heads" else 16)
+    assert tcfg.gnn_edge_packed == (name == "edge_packed")
+    # the policy flag, against the JAX train CLI's build of the same flags;
+    # on the kernel route neither flag changes the trunk's route
+    jpolicy = jcli_train.build(jargs)[1]
+    assert policy.fuse_gnn_trunks == jpolicy.fuse_gnn_trunks == (name == "fuse_trunks")
+    assert not policy._fused_routable()
 
 
 def jpolicy_routable(jargs) -> bool:
@@ -226,8 +236,6 @@ REFUSED = {
     "sequential": (["--scenario_name", "nav_metered_one_goal_graph_sequential"], "A7"),
     "fairassign": (["--scenario_name", "nav_fairassign_fairrew_formation_graph_rotate_tube"],
                    "A7"),
-    "edge_packed": (["--gnn_edge_packed", "True"], "A6.2"),
-    "fuse_trunks": (["--fuse_gnn_trunks", "True"], "A11"),
     # a directory of the reference's actor.pt weights (made by the test)
     "warm_start_actor_pt": (["--warm_start_dir", "{actor_pt}"], "A11"),
     "mpe": (["--env_name", "MPE", "--scenario_name", "simple_spread"], "A9"),
@@ -597,6 +605,60 @@ def test_cli_trains_restores_and_evaluates_concat_heads_on_cpu(tmp_path):
         gnn_trunk.gnn_trunk_forward = real
     assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
     assert not calls, "the dense route never calls the trunk"
+
+
+def test_cli_trains_restores_and_evaluates_packed_fused_on_cpu(tmp_path):
+    """``--gnn_impl dense --gnn_edge_packed True --fuse_gnn_trunks True`` at
+    the CLI's default bfloat16: two tiny episodes whose updates run both
+    GNNs in one pass (``gnn_dense_nodes_dual``) in the packed layout
+    (``embed_conv_packed``), the checkpoint restored bit for bit, then the
+    eval CLI, which rebuilds the packed layout from the run's config.json;
+    no trunk call."""
+    from contracts_marl_aam_corridors_tpu_torch.models import nets
+
+    argv = SMALL[len(FLOAT32):] + ["--gnn_impl", "dense", "--gnn_edge_packed", "True",
+                                   "--fuse_gnn_trunks", "True"]
+    calls = {"trunk": 0, "dual_nodes": 0, "packed": 0}
+    real = (gnn_trunk.gnn_trunk_forward, nets.gnn_dense_nodes_dual, nets.embed_conv_packed)
+
+    def counting(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    gnn_trunk.gnn_trunk_forward = counting("trunk", real[0])
+    nets.gnn_dense_nodes_dual = counting("dual_nodes", real[1])
+    nets.embed_conv_packed = counting("packed", real[2])
+    try:
+        run_dir, ts = cli_train.main(argv + ["--num_env_steps", str(2 * 8 * 5),
+                                             "--run_dir", str(tmp_path / "train")])
+        trained = dict(calls)
+        models = os.path.join(run_dir, "models")
+        run_cfg = load_run_config(models)
+        assert run_cfg["gnn_edge_packed"] is True and run_cfg["fuse_gnn_trunks"] is True
+        _, policy, trainer, _ = cli_train.build(flags.parse_all(argv), "cpu")
+        assert policy.cfg.compute_dtype == "bfloat16" and policy.cfg.gnn_edge_packed
+        assert policy.fuse_gnn_trunks and policy._fused_routable()
+        restored, episode = restore_checkpoint(models, trainer.init_state(99))
+        want, got = _state_tensors(ts), _state_tensors(restored)
+        assert episode == 1 and set(got) == set(want)
+        for k, v in want.items():
+            assert (torch.equal(got[k], v) and got[k].dtype == v.dtype
+                    if isinstance(v, torch.Tensor) else got[k] == v), k
+        packed_before = calls["packed"]
+        rows = cli_eval.main(["--model_dir", models, "--cuda", "--render_episodes", "2",
+                              "--num_agents", "3", "--episode_length", "5",
+                              "--run_dir", str(tmp_path / "eval")])
+    finally:
+        gnn_trunk.gnn_trunk_forward, nets.gnn_dense_nodes_dual, nets.embed_conv_packed = real
+    assert len(rows) == 2 and all(v == v for r in rows for v in r.values())
+    # 2 ppo epochs an episode, each one fused pass (its packed EmbedConv
+    # mapped once over both sides); the collects' and the eval's calls
+    # each run the packed EmbedConv of one network
+    assert trained["dual_nodes"] == 4 and trained["trunk"] == 0
+    assert trained["packed"] > 4 and calls["packed"] > packed_before
+    assert calls["trunk"] == 0, "the dense route never calls the trunk"
 
 
 # the shipped july checkpoint in the port's layout and its JAX original
